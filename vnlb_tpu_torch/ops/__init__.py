@@ -1,0 +1,1 @@
+"""Subpackage of vnlb_tpu_torch."""

@@ -4,13 +4,16 @@
     python3 chip_smoke.py
 
 Builds the kernels from vnlb_tpu_torch/csrc, checks each kernel against its
-plain PyTorch version at the shapes of the main path, then runs the
-two-pass ``denoise`` on a 5x480x854 clip at sigma=20 with the bench config
-(preset iphone, eig_method poly, step_s 6, border_mode mask, topk exact,
-zero flow) and checks its output.  Every phase prints one line; any failure
-raises and the script exits nonzero.  The second-to-last line is the kernel
-table as JSON, the last line the device record.  Without a CUDA card, or
-without the repository beside it, the script fails and prints no result.
+plain PyTorch version at the shapes of the main paths, then runs the
+two-pass ``denoise`` on a 5x480x854 clip at sigma=20 three ways and checks
+each output: the bench config (preset iphone, eig_method poly, step_s 6,
+border_mode mask, topk exact, zero flow), and the API default
+(``denoise(noisy, sigma)`` with no cfg: step_s 3, sliding borders) with
+zero flow and with the clip's own drift flow.  Every phase prints one line;
+any failure raises and the script exits nonzero.  The second-to-last line
+is the kernel table as JSON, the last line the device record.  Without a
+CUDA card, or without the repository beside it, the script fails and
+prints no result.
 """
 
 import json
@@ -24,8 +27,11 @@ import torch
 T, H, W, SIGMA = 5, 480, 854, 20.0
 BENCH = dict(preset="iphone", eig_method="poly", step_s=6,
              border_mode="mask", topk="exact")
-# the JAX package on the CPU, (5, 96, 112) clip, seed 0, noise seed 1
+# the JAX package on the CPU, (5, 96, 112) clip, seed 0, noise seed 1:
+# bench config, and the API default with zero flow and with the drift flow
 REF_SMALL = dict(basic=30.025878, deno=30.125710)
+REF_SMALL_API = {"zero": dict(basic=29.962152, deno=30.117215),
+                 "drift": dict(basic=30.156511, deno=30.210914)}
 
 
 def log(phase, **kv):
@@ -45,6 +51,79 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def tie_aware(name, vk, ik, vp, ip, tol):
+    """Tie-aware top-K comparison: the inf pattern agrees, sorted values
+    agree within ``tol`` elementwise (so an index mismatch is a tie);
+    returns the index agreement."""
+    fin = torch.isfinite(vp)
+    if not torch.equal(fin, torch.isfinite(vk)):
+        raise AssertionError(f"{name}: inf pattern differs")
+    err = torch.where(fin, (vk - vp).abs(), torch.zeros_like(vp))
+    if (err > tol).any():
+        raise AssertionError(f"{name}: top-K values beyond tolerance")
+    return (ik == ip).float().mean().item()
+
+
+def rel_err(got, want):
+    return ((got - want).abs() / want.abs().clamp(min=1.0)).max().item()
+
+
+def e2e(vt, name, noisy, clean, dev, counters, cfg=None, flows=None):
+    """The main path at full size: one counted warmup run, best of 3 with a
+    bitwise repeat check, the output checks and the plain-version pass."""
+    from vnlb_tpu_torch.utils.metrics import compute_psnr
+
+    for c in counters:
+        c.launches = 0
+    deno, basic, first_s = vt.denoise(noisy, SIGMA, flows=flows, cfg=cfg,
+                                      device=dev)
+    launches = {c.__name__: c.launches for c in counters}
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"{name}: main path skipped a kernel: "
+                             f"{launches}")
+    log(f"{name}_warmup", seconds=f"{first_s:.3f}", **launches)
+
+    noisy_t = torch.from_numpy(noisy).to(dev)
+    times = []
+    for _ in range(3):
+        torch.cuda.reset_peak_memory_stats(dev)
+        d2, b2, sec = vt.denoise(noisy_t, SIGMA, flows=flows, cfg=cfg,
+                                 device=dev)
+        times.append(sec)
+        if not (torch.equal(d2, deno) and torch.equal(b2, basic)):
+            raise AssertionError(f"{name}: repeat run is not bitwise equal")
+    peak = torch.cuda.max_memory_allocated(dev)
+    deno_np, basic_np = deno.cpu().numpy(), basic.cpu().numpy()
+    if not (deno_np.shape == noisy.shape and np.isfinite(deno_np).all()
+            and np.isfinite(basic_np).all()):
+        raise AssertionError(f"{name}: output has the wrong shape or "
+                             f"non-finite values")
+    p_noisy = compute_psnr(noisy, clean)
+    p_basic = compute_psnr(basic_np, clean)
+    p_deno = compute_psnr(deno_np, clean)
+    best = min(times)
+    log(name, seconds=",".join(f"{t:.4f}" for t in times),
+        fps=f"{T / best:.3f}", psnr_noisy=f"{p_noisy:.4f}",
+        psnr_basic=f"{p_basic:.4f}", psnr_deno=f"{p_deno:.4f}",
+        peak_mem_gib=f"{peak / 2 ** 30:.3f}", repeat_bitwise=True)
+    if not p_deno >= p_noisy + 6.0:
+        raise AssertionError(f"{name}: deno {p_deno} < noisy {p_noisy} + 6")
+
+    t0 = time.perf_counter()
+    dp, bp, plain_s = vt.denoise(noisy_t, SIGMA, flows=flows, cfg=cfg,
+                                 device=dev, kernels=vt.PLAIN)
+    pp_basic = compute_psnr(bp.cpu().numpy(), clean)
+    pp_deno = compute_psnr(dp.cpu().numpy(), clean)
+    log(f"{name}_plain", seconds=f"{plain_s:.4f}",
+        psnr_basic=f"{pp_basic:.4f}", psnr_deno=f"{pp_deno:.4f}",
+        mean_abs_diff=f"{(dp - deno).abs().mean().item():.4g}",
+        wall=f"{time.perf_counter() - t0:.2f}")
+    if not (abs(pp_basic - p_basic) < 0.02 and abs(pp_deno - p_deno) < 0.02):
+        raise AssertionError(f"{name}: kernel path and plain path differ by "
+                             f">= 0.02 dB")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -53,11 +132,16 @@ def main():
     from vnlb_tpu_torch import _build
     from vnlb_tpu_torch.ops import color
     from vnlb_tpu_torch.ops.econ_filter import econ_filter, econ_filter_plain
-    from vnlb_tpu_torch.ops.mask import lattice_sites
+    from vnlb_tpu_torch.ops.mask import interior_split, lattice_sites
     from vnlb_tpu_torch.ops.patch_dist import patch_dist, patch_dist_plain
+    from vnlb_tpu_torch.ops.patch_gather import (patch_gather,
+                                                 patch_gather_plain)
+    from vnlb_tpu_torch.ops.search import exec_search, search_levels
     from vnlb_tpu_torch.ops.search_dense import (exec_search_dense,
-                                                 level_queries, search_levels)
-    from vnlb_tpu_torch.testing.data import add_noise, synthetic_video
+                                                 level_queries)
+    from vnlb_tpu_torch.testing.data import (add_noise, drift_flows,
+                                             synthetic_video)
+    from vnlb_tpu_torch.utils.flow_io import expand_flows
     from vnlb_tpu_torch.utils.metrics import compute_psnr
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -82,13 +166,17 @@ def main():
 
     cfg = vt.default_config(SIGMA, **BENCH)
     s0, s1 = cfg.stage(0), cfg.stage(1)
+    api_cfg = vt.default_config(SIGMA)
+    a0, a1 = api_cfg.stage(0), api_cfg.stage(1)
     clean = synthetic_video(T, H, W, seed=0)
     noisy = add_noise(clean, SIGMA, seed=1)
     noisy_t = torch.from_numpy(noisy).to(dev)
     yuv = color.rgb2yuv(noisy_t)
     shape = tuple(noisy.shape)
+    drift = drift_flows(T, H, W)
+    ff, bf = (torch.from_numpy(f).to(dev) for f in expand_flows(*drift))
 
-    # ---- 3. K1 vs plain at main-path shapes ----
+    # ---- 3. K1 vs plain at main-path shapes (dense entry) ----
     k1_err = 0.0
     for name, scfg, lvl in (("s0.l0", s0, 0), ("s0.l1", s0, 1),
                             ("s0.l2", s0, 2), ("s1.l0", s1, 0)):
@@ -101,14 +189,13 @@ def main():
         got = patch_dist(*args)
         want = patch_dist_plain(*args)
         torch.cuda.synchronize()
-        rel = ((got - want).abs() / want.abs().clamp(min=1.0)).max().item()
+        rel = rel_err(got, want)
         k1_err = max(k1_err, (got - want).abs().max().item())
         if not rel < 1e-5:
             raise AssertionError(f"K1 {name}: max relative error {rel}")
         log("k1", shape=name, sites=sites.shape[0],
             level=f"{v_l.shape[2]}x{v_l.shape[3]}", dt_planes=3,
             max_rel_err=f"{rel:.3g}")
-    agree = {}
     for name, scfg in (("s0", s0), ("s1", s1)):
         sites = torch.from_numpy(lattice_sites(shape, scfg)[:4096]).to(dev)
         levels = search_levels(yuv, scfg)
@@ -116,18 +203,11 @@ def main():
                                    dist_fn=patch_dist)
         vp, ip = exec_search_dense(yuv, sites, scfg, levels=levels,
                                    dist_fn=patch_dist_plain)
-        fin = torch.isfinite(vp)
-        if not torch.equal(fin, torch.isfinite(vk)):
-            raise AssertionError(f"K1 top-K {name}: inf pattern differs")
+        # one bf16 ulp per pyramid level
         tol = 3 * 2.0 ** -7 * (vp.abs() + scfg.offset) + 1e-7
-        err = torch.where(fin, (vk - vp).abs(), torch.zeros_like(vp))
-        if (err > tol).any():
-            raise AssertionError(f"K1 top-K {name}: values beyond one bf16 "
-                                 f"ulp per level")
-        agree[name] = (ik == ip).float().mean().item()
+        agree = tie_aware(f"K1 top-K {name}", vk, ik, vp, ip, tol)
         log("k1_topk", stage=name, sites=sites.shape[0],
-            index_agreement=f"{agree[name]:.6f}",
-            mismatches_are_ties=True)
+            index_agreement=f"{agree:.6f}", mismatches_are_ties=True)
     v_l = search_levels(yuv, s1)[0]
     sites = torch.from_numpy(lattice_sites(shape, s1)).to(dev).long()
     args = (v_l, sites[:, 0], sites[:, 1], sites[:, 2], -3, 7, s1.pt, s1.ps,
@@ -137,7 +217,85 @@ def main():
     log("k1_time", shape=f"s1.l0 sites={sites.shape[0]} dt_planes=7",
         kernel_ms=f"{k1_ms:.3f}", plain_ms=f"{k1_plain_ms:.3f}")
 
-    # ---- 4. K2 vs plain, both routes, at G=768 and at the main path's
+    # ---- 4. K1's window-start entry vs plain: the gather search of the
+    # API default at 480p (every border site of both stages, and 4096
+    # sites under the drift flow), every pyramid level ----
+    for name, scfg, flows in (("s0.border", a0, None),
+                              ("s1.border", a1, None),
+                              ("s0.drift", a0, (ff, bf)),
+                              ("s1.drift", a1, (ff, bf))):
+        sites = lattice_sites(shape, scfg)
+        if flows is None:
+            sites = interior_split(sites, shape, scfg)[1]
+            flows = (torch.zeros_like(ff),) * 2
+        else:
+            sites = sites[:4096]
+        sites = torch.from_numpy(sites).to(dev)
+        levels = search_levels(yuv, scfg)
+        rels = []
+
+        def both(*a, **kw):
+            got, want = patch_dist(*a, **kw), patch_dist_plain(*a, **kw)
+            rels.append(rel_err(got, want))
+            return got
+
+        vk, ik = exec_search(yuv, sites, *flows, scfg, levels=levels,
+                             dist_fn=both)
+        vp, ip = exec_search(yuv, sites, *flows, scfg, levels=levels,
+                             dist_fn=patch_dist_plain)
+        rel = max(rels)
+        if not rel < 1e-5:
+            raise AssertionError(f"K1 window starts {name}: max relative "
+                                 f"error {rel}")
+        # f32 sums of the same squares in another order, per level
+        tol = len(levels) * 1e-5 * (vp.abs() + scfg.offset) + 1e-7
+        agree = tie_aware(f"K1 window starts {name}", vk, ik, vp, ip, tol)
+        log("k1_windows", search=name, sites=sites.shape[0],
+            levels=len(levels), max_rel_err=f"{rel:.3g}",
+            index_agreement=f"{agree:.6f}", mismatches_are_ties=True)
+    sites = torch.from_numpy(lattice_sites(shape, a1)[:4096]).to(dev)
+    sy = torch.from_numpy(np.random.default_rng(0).integers(
+        0, H - a1.ps - a1.w_s + 2, (7, 4096)).astype(np.int32)).to(dev)
+    sx = torch.from_numpy(np.random.default_rng(1).integers(
+        0, W - a1.ps - a1.w_s + 2, (7, 4096)).astype(np.int32)).to(dev)
+    args = (v_l, sites[:, 0], sites[:, 1], sites[:, 2], -3, 7, a1.pt,
+            a1.ps, a1.w_s)
+    k1w_ms = cuda_ms(lambda: patch_dist(*args, sy=sy, sx=sx), 5)
+    k1w_plain_ms = cuda_ms(lambda: patch_dist_plain(*args, sy=sy, sx=sx), 1)
+    log("k1_windows_time", shape="s1.l0 sites=4096 dt_planes=7",
+        kernel_ms=f"{k1w_ms:.3f}", plain_ms=f"{k1w_plain_ms:.3f}")
+
+    # ---- 5. K4 vs plain at main-path shapes: one 4096-site chunk of the
+    # API default's top-K, stage 0 (K=100, pt=1, one video) and stage 1
+    # (K=60, pt=2, noisy + basic) ----
+    k4_times, k4_err = {}, 0.0
+    for name, scfg in (("s0", a0), ("s1", a1)):
+        sites = torch.from_numpy(lattice_sites(shape, scfg)[:4096]).to(dev)
+        _, inds = exec_search_dense(yuv, sites, scfg,
+                                    levels=search_levels(yuv, scfg))
+        inds[::97, -1] = -1
+        videos = [yuv] if scfg.step == 0 else [yuv, yuv.flip(0).contiguous()]
+        got = patch_gather(videos, inds, scfg.ps, scfg.pt, scfg.cols_bf16)
+        want = patch_gather_plain(videos, inds, scfg.ps, scfg.pt,
+                                  scfg.cols_bf16)
+        torch.cuda.synchronize()
+        k4_err = max([k4_err] + [(g - w_).abs().max().item()
+                                 for g, w_ in zip(got, want)])
+        if not all(torch.equal(g, w_) for g, w_ in zip(got, want)):
+            raise AssertionError(f"K4 {name}: not bitwise equal to plain")
+        kms = cuda_ms(lambda: patch_gather(videos, inds, scfg.ps, scfg.pt,
+                                           scfg.cols_bf16), 10)
+        pms = cuda_ms(lambda: patch_gather_plain(videos, inds, scfg.ps,
+                                                 scfg.pt, scfg.cols_bf16), 3)
+        k4_times[name] = (kms, pms)
+        mb = sum(g.numel() for g in got) * 4 / 1e6
+        log("k4", stage=name, B=inds.shape[0], K=inds.shape[1],
+            videos=len(videos), out_mb=f"{mb:.1f}", bitwise=True,
+            kernel_ms=f"{kms:.3f}", plain_ms=f"{pms:.3f}",
+            kernel_gb_s=f"{mb / kms:.1f}")
+        del got, want
+
+    # ---- 6. K2 vs plain, both routes, at G=768 and at the main path's
     # chunk of 4096 sites x 3 channels ----
     k2_err = 0.0
     k2_times = {}
@@ -166,75 +324,55 @@ def main():
                 plain_ms=f"{pms:.3f}")
             del xc, xn, got, want
 
-    # ---- 5. end to end ----
+    # ---- 7. small-clip parity with the JAX package (CPU numbers) ----
     small_clean = synthetic_video(5, 96, 112, seed=0)
     small_noisy = add_noise(small_clean, SIGMA, seed=1)
-    d, b, _ = vt.denoise(small_noisy, SIGMA, cfg=cfg, device=dev)
-    pb = compute_psnr(b.cpu().numpy(), small_clean)
-    pd = compute_psnr(d.cpu().numpy(), small_clean)
-    if not (abs(pb - REF_SMALL["basic"]) < 0.02
-            and abs(pd - REF_SMALL["deno"]) < 0.02):
-        raise AssertionError(f"small clip PSNR {pb}/{pd} vs JAX {REF_SMALL}")
-    log("small_clip", basic_psnr=f"{pb:.4f}", deno_psnr=f"{pd:.4f}",
-        jax_cpu=f"{REF_SMALL['basic']}/{REF_SMALL['deno']}")
+    runs = [("small_clip", REF_SMALL, cfg, None)] + [
+        (f"small_clip_api_{fl}", REF_SMALL_API[fl], None,
+         drift_flows(5, 96, 112) if fl == "drift" else None)
+        for fl in ("zero", "drift")]
+    for name, ref, rcfg, flows in runs:
+        d, b, _ = vt.denoise(small_noisy, SIGMA, flows=flows, cfg=rcfg,
+                             device=dev)
+        pb = compute_psnr(b.cpu().numpy(), small_clean)
+        pd = compute_psnr(d.cpu().numpy(), small_clean)
+        if not (abs(pb - ref["basic"]) < 0.02
+                and abs(pd - ref["deno"]) < 0.02):
+            raise AssertionError(f"{name} PSNR {pb}/{pd} vs JAX {ref}")
+        log(name, basic_psnr=f"{pb:.4f}", deno_psnr=f"{pd:.4f}",
+            jax_cpu=f"{ref['basic']}/{ref['deno']}")
 
-    patch_dist.launches = 0
-    econ_filter.launches = 0
-    deno, basic, first_s = vt.denoise(noisy, SIGMA, cfg=cfg, device=dev)
-    launches = {"patch_dist": patch_dist.launches,
-                "econ_filter": econ_filter.launches}
-    if not all(n > 0 for n in launches.values()):
-        raise AssertionError(f"main path skipped a kernel: {launches}")
-    log("e2e_warmup", seconds=f"{first_s:.3f}", **launches)
+    # ---- 8. end to end at 5x480x854: each main path with the launch
+    # counts set to 0 just before it and read just after ----
+    counters = (patch_dist, econ_filter, patch_gather)
+    launches = {
+        "e2e": e2e(vt, "e2e", noisy, clean, dev, counters, cfg=cfg),
+        "e2e_api_zero": e2e(vt, "e2e_api_zero", noisy, clean, dev,
+                            counters),
+        "e2e_api_drift": e2e(vt, "e2e_api_drift", noisy, clean, dev,
+                             counters, flows=drift),
+    }
+    main_path = launches["e2e_api_zero"]
 
-    times = []
-    for _ in range(3):
-        torch.cuda.reset_peak_memory_stats(dev)
-        d2, b2, sec = vt.denoise(noisy_t, SIGMA, cfg=cfg, device=dev)
-        times.append(sec)
-        if not (torch.equal(d2, deno) and torch.equal(b2, basic)):
-            raise AssertionError("repeat run is not bitwise equal")
-    peak = torch.cuda.max_memory_allocated(dev)
-    deno_np, basic_np = deno.cpu().numpy(), basic.cpu().numpy()
-    if not (deno_np.shape == noisy.shape and np.isfinite(deno_np).all()
-            and np.isfinite(basic_np).all()):
-        raise AssertionError("output has the wrong shape or non-finite values")
-    p_noisy = compute_psnr(noisy, clean)
-    p_basic = compute_psnr(basic_np, clean)
-    p_deno = compute_psnr(deno_np, clean)
-    best = min(times)
-    log("e2e", seconds=",".join(f"{t:.4f}" for t in times),
-        fps=f"{T / best:.3f}", psnr_noisy=f"{p_noisy:.4f}",
-        psnr_basic=f"{p_basic:.4f}", psnr_deno=f"{p_deno:.4f}",
-        peak_mem_gib=f"{peak / 2 ** 30:.3f}", repeat_bitwise=True)
-    if not p_deno >= p_noisy + 6.0:
-        raise AssertionError(f"deno {p_deno} < noisy {p_noisy} + 6 dB")
-
-    t0 = time.perf_counter()
-    dp, bp, plain_s = vt.denoise(noisy_t, SIGMA, cfg=cfg, device=dev,
-                                 kernels=vt.PLAIN)
-    pp_basic = compute_psnr(bp.cpu().numpy(), clean)
-    pp_deno = compute_psnr(dp.cpu().numpy(), clean)
-    log("e2e_plain", seconds=f"{plain_s:.4f}", psnr_basic=f"{pp_basic:.4f}",
-        psnr_deno=f"{pp_deno:.4f}",
-        mean_abs_diff=f"{(dp - deno).abs().mean().item():.4g}",
-        wall=f"{time.perf_counter() - t0:.2f}")
-    if not (abs(pp_basic - p_basic) < 0.02 and abs(pp_deno - p_deno) < 0.02):
-        raise AssertionError("kernel path and plain path differ by >= 0.02 dB")
-
-    # ---- 6. records ----
+    # ---- 9. records ----
     kms, pms = k2_times["gram(s1)", 3 * 4096]
+    g_kms, g_pms = k4_times["s1"]
     print(json.dumps({"kernels": [
         {"name": "patch_dist", "route": "cuda",
          "source": "vnlb_tpu_torch/csrc/patch_dist.cu",
          "replaces": "vnlb_tpu/ops/pallas_smat.py:378",
-         "launches": launches["patch_dist"], "max_abs_err": k1_err,
+         "launches": main_path["patch_dist"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms},
         {"name": "econ_filter", "route": "cuda",
          "source": "vnlb_tpu_torch/csrc/econ_filter.cu",
          "replaces": "vnlb_tpu/ops/pallas_filter.py:260",
-         "launches": launches["econ_filter"], "max_abs_err": k2_err,
+         "launches": main_path["econ_filter"], "max_abs_err": k2_err,
          "ms": kms, "plain_ms": pms},
+        {"name": "patch_gather", "route": "cuda",
+         "source": "vnlb_tpu_torch/csrc/patch_gather.cu",
+         "replaces": "vnlb_tpu/ops/pallas_gather.py:176",
+         "launches": main_path["patch_gather"], "max_abs_err": k4_err,
+         "ms": g_kms, "plain_ms": g_pms},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,7 @@ from vnlb_tpu.ops import agg as jagg
 from vnlb_tpu.ops import gather as jgather
 
 from vnlb_tpu_torch.ops import agg, gather
+from vnlb_tpu_torch.ops.patch_gather import patch_gather
 
 torch.set_num_threads(2)
 
@@ -93,7 +94,6 @@ def test_gather_matches_jax(pt, bf16):
     if bf16:
         want = np.asarray(jnp.asarray(want).astype(jnp.bfloat16)
                           .astype(jnp.float32))
-    f, y, x = gather.decode_corners(torch.from_numpy(inds), shape, ps, pt)
-    got = gather.gather_patches(torch.from_numpy(video), f, y, x, ps, pt,
-                                bf16).numpy()
-    np.testing.assert_array_equal(got, want)
+    (got,) = patch_gather([torch.from_numpy(video)], torch.from_numpy(inds),
+                          ps, pt, bf16)
+    np.testing.assert_array_equal(got.numpy(), want)

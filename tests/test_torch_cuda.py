@@ -16,7 +16,9 @@ import vnlb_tpu_torch as vt
 from vnlb_tpu_torch.ops.econ_filter import econ_filter, econ_filter_plain
 from vnlb_tpu_torch.ops.mask import lattice_sites
 from vnlb_tpu_torch.ops.patch_dist import patch_dist, patch_dist_plain
-from vnlb_tpu_torch.testing.data import add_noise, synthetic_video
+from vnlb_tpu_torch.ops.patch_gather import patch_gather, patch_gather_plain
+from vnlb_tpu_torch.ops.search import _window_starts, track_centers
+from vnlb_tpu_torch.testing.data import add_noise, drift_flows, synthetic_video
 from vnlb_tpu_torch.utils.metrics import compute_psnr
 
 BENCH = dict(preset="iphone", eig_method="poly", step_s=6,
@@ -51,6 +53,59 @@ def test_patch_dist_kernel_matches_plain(card, stage):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("stage", [0, 1])
+def test_patch_dist_window_starts_match_plain(card, stage):
+    """K1's gather-search entry: per-(dt, site) window starts from
+    flow-tracked centres."""
+    cfg = vt.default_config(20.0).stage(stage)
+    rng = np.random.default_rng(2)
+    shape = (5, 3, 60, 64)
+    vid = torch.from_numpy(rng.uniform(0, 255, (5, cfg.dist_chnls, 60, 64))
+                           .astype(np.float32)).to(card)
+    ff, bf = (torch.from_numpy(rng.uniform(-3, 3, (5, 2, 60, 64))
+                               .astype(np.float32)).to(card)
+              for _ in range(2))
+    sites = torch.from_numpy(lattice_sites(shape, cfg)).to(card)
+    cen = track_centers(sites, ff, bf, 3, 3, shape).long()
+    sy, sx = _window_starts(cen, cfg.w_s, cfg.ps, 60, 64)
+    args = (vid, sites[:, 0], sites[:, 1], sites[:, 2], -3, 7, cfg.pt,
+            cfg.ps, cfg.w_s)
+    kw = dict(sy=sy.T.contiguous(), sx=sx.T.contiguous())
+    before = patch_dist.launches
+    got = patch_dist(*args, **kw)
+    want = patch_dist_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert patch_dist.launches == before + 1
+    assert torch.allclose(got, want, rtol=1e-5, atol=1e-2)
+    assert not torch.allclose(got, patch_dist(*args), rtol=1e-5, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("joint,bf16", [(False, True), (False, False),
+                                        (True, True), (True, False)])
+def test_patch_gather_kernel_bitwise(card, joint, bf16):
+    """K4 copies values (rounding them to bf16 at most), so it is bitwise
+    equal to its plain version, -1 indices included."""
+    rng = np.random.default_rng(5)
+    shape = (5, 3, 40, 44)
+    t_len, c, h, w = shape
+    pt, ps = (2, 7) if joint else (1, 7)
+    videos = [torch.from_numpy(rng.uniform(0, 255, shape).astype(np.float32))
+              .to(card) for _ in range(2 if joint else 1)]
+    inds = rng.integers(-1, (t_len - pt + 1) * c * h * w, (300, 37))
+    inds = torch.from_numpy(inds.astype(np.int32)).to(card)
+    before = patch_gather.launches
+    got = patch_gather(videos, inds, ps, pt, bf16)
+    want = patch_gather_plain(videos, inds, ps, pt, bf16)
+    torch.cuda.synchronize()
+    assert patch_gather.launches == before + 1
+    assert len(got) == len(videos)
+    for g, wnt in zip(got, want):
+        assert g.shape == (300, 37, c, pt * ps * ps)
+        assert torch.equal(g, wnt)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("stage,bf16", [(0, True), (1, True), (0, False),
                                         (1, False)])
 def test_econ_filter_kernel_matches_plain(card, stage, bf16):
@@ -77,10 +132,29 @@ def test_main_path_launches_kernels(card):
     clean = synthetic_video(5, 96, 112, seed=0)
     noisy = add_noise(clean, 20.0, seed=1)
     cfg = vt.default_config(20.0, **BENCH)
-    patch_dist.launches = econ_filter.launches = 0
+    patch_dist.launches = econ_filter.launches = patch_gather.launches = 0
     deno, basic, _ = vt.denoise(noisy, 20.0, cfg=cfg, device=card)
     assert patch_dist.launches > 0 and econ_filter.launches > 0
+    assert patch_gather.launches > 0
     again, _, _ = vt.denoise(noisy, 20.0, cfg=cfg, device=card)
+    assert torch.equal(deno, again)
+    assert compute_psnr(deno.cpu().numpy(), clean) > \
+        compute_psnr(noisy, clean) + 6.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flow", [False, True])
+def test_api_default_launches_kernels(card, flow):
+    """``denoise(noisy, sigma)`` with no cfg (step 3, sliding borders),
+    with zero flow and with the clip's drift flow."""
+    clean = synthetic_video(5, 96, 112, seed=0)
+    noisy = add_noise(clean, 20.0, seed=1)
+    flows = drift_flows(5, 96, 112) if flow else None
+    patch_dist.launches = econ_filter.launches = patch_gather.launches = 0
+    deno, basic, _ = vt.denoise(noisy, 20.0, flows=flows, device=card)
+    assert min(patch_dist.launches, econ_filter.launches,
+               patch_gather.launches) > 0
+    again, _, _ = vt.denoise(noisy, 20.0, flows=flows, device=card)
     assert torch.equal(deno, again)
     assert compute_psnr(deno.cpu().numpy(), clean) > \
         compute_psnr(noisy, clean) + 6.0
@@ -93,9 +167,9 @@ def test_site_chunks_bitwise_on_card(card, monkeypatch):
     noisy = add_noise(synthetic_video(5, 64, 80, seed=2), 20.0, seed=3)
     cfg = vt.default_config(20.0, **BENCH).stage(1)
     vid = torch.from_numpy(noisy).to(card)
-    whole = vt.proc_nl(vid, vid, None, cfg)
+    whole = vt.proc_nl(vid, vid, None, None, None, cfg)
     monkeypatch.setattr(vt.pipeline, "SITE_CHUNK", 97)
-    assert torch.equal(vt.proc_nl(vid, vid, None, cfg), whole)
+    assert torch.equal(vt.proc_nl(vid, vid, None, None, None, cfg), whole)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,8 @@
 """End-to-end parity of the PyTorch port against the JAX package on the CPU:
 each pass and the two-pass ``denoise`` on a (5, 96, 112) clip at sigma=20
-with the bench config; determinism; unsupported configs raise."""
+with the bench config; the API default (no cfg: step 3, sliding borders)
+on a (4, 64, 72) clip with zero flow and with the clip's own drift flow;
+determinism; flow forms; unsupported configs raise."""
 
 import numpy as np
 import pytest
@@ -11,7 +13,8 @@ from vnlb_tpu.pipeline import proc_nl as j_proc_nl
 
 import vnlb_tpu_torch as vt
 from vnlb_tpu_torch.config import config_from_jax
-from vnlb_tpu_torch.testing.data import add_noise, synthetic_video
+from vnlb_tpu_torch.testing.data import add_noise, drift_flows, synthetic_video
+from vnlb_tpu_torch.utils.flow_io import expand_flows
 from vnlb_tpu_torch.utils.metrics import compute_psnr
 
 torch.set_num_threads(2)
@@ -52,7 +55,7 @@ def _close(got, want, clean):
 def test_first_pass_matches_jax(clip, jax_run):
     clean, noisy = clip
     jc, jbasic, _ = jax_run
-    got = vt.proc_nl(torch.from_numpy(noisy), None, None,
+    got = vt.proc_nl(torch.from_numpy(noisy), None, None, None, None,
                      config_from_jax(jc.stage(0))).numpy()
     _close(got, jbasic, clean)
 
@@ -65,7 +68,7 @@ def test_second_pass_matches_jax(clip, jax_run):
                                 zero_flow=True))
     np.testing.assert_array_equal(want, jdeno)
     got = vt.proc_nl(torch.from_numpy(noisy), torch.from_numpy(jbasic), None,
-                     config_from_jax(jc.stage(1))).numpy()
+                     None, None, config_from_jax(jc.stage(1))).numpy()
     _close(got, want, clean)
 
 
@@ -89,7 +92,7 @@ def test_denoise_repeat_is_bitwise(clip, port_run):
 
 
 @pytest.mark.parametrize("override", [
-    dict(border_mode="slide"), dict(topk="stream"), dict(topk="approx"),
+    dict(dense_rows="full"), dict(topk="stream"), dict(topk="approx"),
     dict(eig_method="jacobi"), dict(poly_econ=False), dict(deno="ave"),
     dict(couple_channels=True), dict(poly_impl="pallas"),
     dict(agg_weight="exp"), dict(poly_gram=False),
@@ -102,14 +105,66 @@ def test_unsupported_config_raises(clip, override):
         vt.denoise(noisy[:, :, :32, :32], 20.0, cfg=cfg, device="cpu")
 
 
-def test_nonzero_flow_raises(clip):
-    _, noisy = clip
-    ff = np.zeros((5, 2, 96, 112), np.float32)
-    bf = ff.copy()
-    bf[1, 0, 3, 3] = 0.5
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        vt.denoise(noisy, 20.0, flows=(ff, bf), device="cpu")
+@pytest.fixture(scope="module")
+def small_clip():
+    clean = synthetic_video(4, 64, 72, seed=0)
+    return clean, add_noise(clean, 20.0, seed=1), drift_flows(4, 64, 72)
 
+
+@pytest.fixture(scope="module")
+def api_runs(small_clip):
+    """(port, JAX) (basic, deno) pairs of ``denoise(noisy, 20.0)`` with no
+    cfg, for zero flow and for the (T-1)-frame drift flow pair."""
+    clean, noisy, drift = small_clip
+    runs = {}
+    for name, flows in (("zero", None), ("drift", drift)):
+        deno, basic, _ = vt.denoise(noisy, 20.0, flows=flows, device="cpu")
+        jdeno, jbasic, _ = vnlb_tpu.denoise(noisy, 20.0, flows=flows)
+        runs[name] = ((basic.numpy(), deno.numpy()),
+                      (np.array(jbasic), np.array(jdeno)))
+    return runs
+
+
+@pytest.mark.parametrize("flow", ["zero", "drift"])
+def test_api_default_matches_jax(small_clip, api_runs, flow):
+    clean, noisy, _ = small_clip
+    (basic, deno), (jbasic, jdeno) = api_runs[flow]
+    assert deno.shape == noisy.shape and np.isfinite(deno).all()
+    _close(basic, jbasic, clean)
+    _close(deno, jdeno, clean)
+    assert compute_psnr(deno, clean) >= compute_psnr(noisy, clean) + 6.0
+
+
+def test_flow_pair_expands(small_clip, api_runs):
+    """A (T-1)-frame flow pair runs, and equals the run with the flows
+    edge-replicated to T frames (as a dict)."""
+    _, noisy, (ff, bf) = small_clip
+    fx, bx = expand_flows(ff, bf)
+    deno, basic, _ = vt.denoise(noisy, 20.0, device="cpu",
+                                flows={"fflow": fx, "bflow": bx})
+    np.testing.assert_array_equal(basic.numpy(), api_runs["drift"][0][0])
+    np.testing.assert_array_equal(deno.numpy(), api_runs["drift"][0][1])
+
+
+def test_repeat_with_flow_is_bitwise(small_clip, api_runs):
+    _, noisy, drift = small_clip
+    deno, basic, _ = vt.denoise(noisy, 20.0, flows=drift, device="cpu")
+    np.testing.assert_array_equal(basic.numpy(), api_runs["drift"][0][0])
+    np.testing.assert_array_equal(deno.numpy(), api_runs["drift"][0][1])
+
+
+def test_mask_with_flow_takes_gather_route(small_clip):
+    """With a nonzero flow, ``border_mode="mask"`` plans every site for the
+    gather search, as JAX does, and the pass matches JAX's."""
+    clean, noisy, drift = small_clip
+    fx, bx = expand_flows(*drift)
+    jc = vnlb_tpu.default_config(20.0, border_mode="mask").stage(0)
+    cfg = config_from_jax(jc)
+    sites, n_dense = vt.pipeline.plan_sites(noisy.shape, cfg, False)
+    assert n_dense == 0 and len(sites) > 0
+    want = np.asarray(j_proc_nl(noisy, None, None, fx, bx, jc))
+    got = vt.proc_nl(torch.from_numpy(noisy), None, None, fx, bx, cfg)
+    _close(got.numpy(), want, clean)
 
 
 def test_site_chunks_do_not_change_output(clip, monkeypatch):
@@ -121,7 +176,7 @@ def test_site_chunks_do_not_change_output(clip, monkeypatch):
     _, noisy = clip
     cfg = vt.default_config(20.0, **BENCH).stage(1)
     small = torch.from_numpy(noisy[:, :, :48, :64].copy())
-    whole = vt.proc_nl(small, small, None, cfg)
+    whole = vt.proc_nl(small, small, None, None, None, cfg)
     monkeypatch.setattr(vt.pipeline, "SITE_CHUNK", 97)
-    chunked = vt.proc_nl(small, small, None, cfg)
+    chunked = vt.proc_nl(small, small, None, None, None, cfg)
     torch.testing.assert_close(chunked, whole, rtol=0, atol=1e-3)

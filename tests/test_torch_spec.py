@@ -111,7 +111,8 @@ def test_port_imports_without_jax():
             "sys.modules['vnlb_tpu'] = None; "
             "import vnlb_tpu_torch, vnlb_tpu_torch.ops.search_dense, "
             "vnlb_tpu_torch.ops.econ_filter, vnlb_tpu_torch.testing.data, "
-            "vnlb_tpu_torch.utils.metrics; "
+            "vnlb_tpu_torch.ops.patch_gather, vnlb_tpu_torch.ops.search, "
+            "vnlb_tpu_torch.utils.flow_io, vnlb_tpu_torch.utils.metrics; "
             "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'vnlb_tpu.')) for m in sys.modules if sys.modules[m] is not None)")
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 At first use the sources under ``csrc/`` are compiled with nvcc for
-``sm_90a`` into one shared library with a plain C interface, written to
+``sm_90a``, one nvcc per source in parallel, and linked into one shared
+library with a plain C interface, written to
 ``build/vnlb_tpu_torch/`` at the repository root and loaded with ctypes.
 The library's file name carries a hash of the sources, so an edited kernel
 is rebuilt and a stale library is never loaded.  Nothing here runs at
@@ -22,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "vnlb_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -30,11 +31,13 @@ _F = ctypes.c_float
 # C signatures of the exported functions: (argtypes, restype).  Every
 # launcher returns the cudaError_t of its launch as an int.
 SIGNATURES = {
-    "vnlb_patch_dist": ([_P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I,
-                         _I, _I, _I, _P, _P], _I),
+    "vnlb_patch_dist": ([_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I,
+                         _I, _I, _I, _I, _P, _P], _I),
     "vnlb_econ_filter": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                           _F, _F, _F, _F, _F, _I, _P], _I),
     "vnlb_econ_filter_smem": ([_I, _I], ctypes.c_longlong),
+    "vnlb_patch_gather": ([_P, _P, _I, _I, _I, _I, _P, ctypes.c_longlong,
+                           _I, _I, _I, _P, _P, _P], _I),
 }
 
 
@@ -61,21 +64,42 @@ def library_path() -> Path:
 
 def build(verbose: bool = False) -> tuple[Path, float]:
     """Compile the sources if their library is missing; returns (path,
-    seconds spent compiling, 0.0 when the library already existed)."""
+    seconds spent compiling, 0.0 when the library already existed).
+
+    One nvcc per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
+    nvcc = _nvcc()
+    ptxas = ["-Xptxas=-v"] if verbose else []
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose and res.stderr:
-        print(res.stderr)
+    objs, procs = [], []
+    for src in _sources():
+        obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"
+        cmd = [nvcc, *ptxas, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((src.name, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        objs.append(obj)
+    failed = []
+    for name, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name} ({proc.returncode}):\n{err}")
+        elif verbose and err:
+            print(err)
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
     return out, time.perf_counter() - t0
 

@@ -1,4 +1,5 @@
-// K1: per-site patch distances of the dense zero-flow search.
+// K1: per-site patch distances of the dense zero-flow search and of the
+// per-site gather search (flow-tracked, sliding windows).
 //
 // Replaces the Pallas kernel vnlb_tpu/ops/pallas_smat.py:280 (`_kernel`,
 // launched at pallas_smat.py:378 by `_smat_chunked_call`, reached through
@@ -10,9 +11,13 @@
 // What it computes, for site s, temporal offset dt = dt_lo + blockIdx.y and
 // candidate offset (a, b) in the w_s x w_s window:
 //   out[dt][s][a*w_s+b] = sum_{f<pt, c<C, i<ps, j<ps}
-//       (V[t+f, c, y+i, x+j] - V[t+dt+f, c, y-half+a+i, x-half+b+j])^2
+//       (V[t+f, c, y+i, x+j] - V[t+dt+f, c, y0+a+i, x0+b+j])^2
 // with zero read outside the frame (and for frames outside [0, T)); no
-// memory outside the video is ever read.  Output is f32; the caller rounds.
+// memory outside the video is ever read.  The window starts at (y0, x0) =
+// (y-half, x-half), or at (sy, sx)[dt][s] when the caller passes window
+// starts (the gather search's entry; the TPU computes that path with XLA
+// convolutions, vnlb_tpu/ops/search.py:207-259).  Output is f32; the caller
+// rounds.
 //
 // What bounds it on the H100: arithmetic, not bytes.  Per site and dt it
 // reads one (w_s+ps-1)^2 region and one patch per channel plane (~11 KB at
@@ -34,7 +39,8 @@ constexpr int kSitesPerBlock = 8;
 __global__ void __launch_bounds__(kThreads)
 patch_dist_kernel(const float* __restrict__ vid, int T, int C, int H, int W,
                   const int* __restrict__ qt, const int* __restrict__ qy,
-                  const int* __restrict__ qx, int S, int dt_lo, int pt,
+                  const int* __restrict__ qx, const int* __restrict__ sy,
+                  const int* __restrict__ sx, int S, int dt_lo, int pt,
                   int ps, int w_s, float* __restrict__ out) {
   extern __shared__ float smem[];
   const int R = w_s + ps - 1;
@@ -51,6 +57,8 @@ patch_dist_kernel(const float* __restrict__ vid, int T, int C, int H, int W,
 
   for (int s = s_begin; s < s_end; ++s) {
     const int t = qt[s], y = qy[s], x = qx[s];
+    const size_t ds = (size_t)dti * S + s;
+    const int y0 = sy ? sy[ds] : y - half, x0 = sx ? sx[ds] : x - half;
     for (int e = threadIdx.x; e < cp * pp; e += blockDim.x) {
       const int k = e / pp, r = e - k * pp;
       const int f = k / C, c = k - f * C;
@@ -63,7 +71,7 @@ patch_dist_kernel(const float* __restrict__ vid, int T, int C, int H, int W,
     for (int e = threadIdx.x; e < cp * rr; e += blockDim.x) {
       const int k = e / rr, r = e - k * rr;
       const int f = k / C, c = k - f * C;
-      const int tt = t + dt + f, yy = y - half + r / R, xx = x - half + r % R;
+      const int tt = t + dt + f, yy = y0 + r / R, xx = x0 + r % R;
       float v = 0.f;
       if (tt >= 0 && tt < T && yy >= 0 && yy < H && xx >= 0 && xx < W)
         v = vid[((size_t)tt * C + c) * hw + (size_t)yy * W + xx];
@@ -83,7 +91,7 @@ patch_dist_kernel(const float* __restrict__ vid, int T, int C, int H, int W,
           }
         }
       }
-      out[((size_t)dti * S + s) * ws2 + o] = acc;
+      out[ds * ws2 + o] = acc;
     }
     __syncthreads();
   }
@@ -91,12 +99,14 @@ patch_dist_kernel(const float* __restrict__ vid, int T, int C, int H, int W,
 
 }  // namespace
 
-// vid: (T, C, H, W) f32; qt/qy/qx: (S,) int32 query corners;
-// out: (n_dt, S, w_s*w_s) f32 for dt = dt_lo .. dt_lo+n_dt-1.
+// vid: (T, C, H, W) f32; qt/qy/qx: (S,) int32 query corners; sy/sx: null,
+// or (n_dt, S) int32 window starts; out: (n_dt, S, w_s*w_s) f32 for
+// dt = dt_lo .. dt_lo+n_dt-1.
 extern "C" int vnlb_patch_dist(const float* vid, int T, int C, int H, int W,
                                const int* qt, const int* qy, const int* qx,
-                               int S, int dt_lo, int n_dt, int pt, int ps,
-                               int w_s, float* out, void* stream) {
+                               const int* sy, const int* sx, int S, int dt_lo,
+                               int n_dt, int pt, int ps, int w_s, float* out,
+                               void* stream) {
   if (S <= 0 || n_dt <= 0) return 0;
   const int R = w_s + ps - 1;
   const size_t smem = (size_t)pt * C * (R * R + ps * ps) * sizeof(float);
@@ -108,6 +118,6 @@ extern "C" int vnlb_patch_dist(const float* vid, int T, int C, int H, int W,
   }
   dim3 grid((S + kSitesPerBlock - 1) / kSitesPerBlock, n_dt);
   patch_dist_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      vid, T, C, H, W, qt, qy, qx, S, dt_lo, pt, ps, w_s, out);
+      vid, T, C, H, W, qt, qy, qx, sy, sx, S, dt_lo, pt, ps, w_s, out);
   return (int)cudaGetLastError();
 }

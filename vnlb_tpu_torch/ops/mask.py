@@ -1,4 +1,5 @@
-"""Coverage lattice (numpy copy of vnlb_tpu/ops/mask.py:25-83).
+"""Coverage lattice and its interior/border split (numpy copy of
+vnlb_tpu/ops/mask.py:25-103).
 
 The lattice is a pure function of the video shape and the stage config:
 every frame in [0, T-pt+1), rows ``h % step == phase_h % step`` (phase_h =
@@ -47,3 +48,14 @@ def lattice_mask(shape, cfg: StageConfig, t_origin: int = 0) -> np.ndarray:
 def lattice_sites(shape, cfg: StageConfig, t_origin: int = 0) -> np.ndarray:
     """(S, 3) int32 site coordinates in raster (t, h, w) order."""
     return np.argwhere(lattice_mask(shape, cfg, t_origin)).astype(np.int32)
+
+
+def interior_split(sites: np.ndarray, shape, cfg: StageConfig):
+    """(interior, border) sites (vnlb_tpu/ops/mask.py:86-103): interior
+    sites are those whose full-resolution w_s x w_s window never clamps."""
+    t, c, h, w = shape
+    half = (cfg.w_s - 1) // 2
+    ys, xs = sites[:, 1], sites[:, 2]
+    ok = ((ys >= half) & (ys <= h - cfg.ps - half)
+          & (xs >= half) & (xs <= w - cfg.ps - half))
+    return sites[ok], sites[~ok]

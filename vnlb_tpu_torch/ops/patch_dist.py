@@ -4,11 +4,14 @@ For each query site (t, y, x), each temporal offset dt in [dt_lo, dt_lo +
 n_dt) and each of the w_s x w_s candidate offsets (a, b):
 
     D[dt, s, a*w_s+b] = sum_{f<pt, c<C, i<ps, j<ps}
-        (V[t+f, c, y+i, x+j] - V[t+dt+f, c, y-half+a+i, x-half+b+j])^2
+        (V[t+f, c, y+i, x+j] - V[t+dt+f, c, y0+a+i, x0+b+j])^2
 
-with zero read outside the video.  One function covers level 0 and the
-coarse needle levels: only the query coordinates differ.  Output is f32;
-the caller rounds (search_bf16) and normalizes.
+with zero read outside the video.  The window starts at (y0, x0) = (y -
+half, x - half) for the dense search, or at the per-(dt, site) starts
+``sy, sx`` (n_dt, S) that the gather search gives (flow-tracked, sliding
+windows).  One function covers level 0 and the coarse needle levels: only
+the query coordinates and window starts differ.  Output is f32; the caller
+rounds (search_bf16) and normalizes.
 
 ``patch_dist`` dispatches by device: a CPU tensor takes the plain version
 ``patch_dist_plain``; a CUDA tensor launches the kernel, and a build or
@@ -16,6 +19,8 @@ launch failure raises.  ``patch_dist.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -27,55 +32,63 @@ __all__ = ["patch_dist", "patch_dist_plain", "patch_dist_kernel"]
 _PLAIN_CHUNK = 4096
 
 
-def _check(vid, qt, qy, qx):
+def _check(vid, qt, qy, qx, n_dt, sy, sx):
     if vid.dim() != 4 or vid.dtype != torch.float32:
         raise ValueError(f"video must be (T, C, H, W) float32, got "
                          f"{tuple(vid.shape)} {vid.dtype}")
     if not (qt.shape == qy.shape == qx.shape and qt.dim() == 1):
         raise ValueError("query coordinates must be three (S,) vectors")
+    if (sy is None) != (sx is None):
+        raise ValueError("window starts need both sy and sx")
+    if sy is not None and not (sy.shape == sx.shape == (n_dt, qt.shape[0])):
+        raise ValueError(f"window starts must be (n_dt, S) = "
+                         f"{(n_dt, qt.shape[0])}, got {tuple(sy.shape)}")
 
 
 def patch_dist_plain(vid: torch.Tensor, qt: torch.Tensor, qy: torch.Tensor,
                      qx: torch.Tensor, dt_lo: int, n_dt: int, pt: int,
-                     ps: int, w_s: int) -> torch.Tensor:
-    """Plain PyTorch version: gathers each site's zero-padded search region
-    and sums squared differences over the ps x ps patch offsets."""
-    _check(vid, qt, qy, qx)
+                     ps: int, w_s: int, sy: Optional[torch.Tensor] = None,
+                     sx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version: gathers each site's search region (zero
+    outside the video) and sums squared differences over the ps x ps patch
+    offsets."""
+    _check(vid, qt, qy, qx, n_dt, sy, sx)
     t_len, c, h, w = vid.shape
     half = (w_s - 1) // 2
     r = w_s + ps - 1
     dev = vid.device
     s_cnt = qt.shape[0]
-    # zero padding: ``half`` pixels around the frame, and a zero frame that
-    # out-of-range frame indices are redirected to
-    vp = torch.nn.functional.pad(vid, (half, half + ps, half, half + ps))
-    vp = torch.cat([vp, torch.zeros_like(vp[:1])], dim=0)
     out = torch.empty((n_dt, s_cnt, w_s * w_s), dtype=torch.float32,
                       device=dev)
     ar_r = torch.arange(r, device=dev)
     ar_p = torch.arange(ps, device=dev)
     ar_f = torch.arange(pt, device=dev)
-    ar_c = torch.arange(c, device=dev)
+    ar_c = torch.arange(c, device=dev)[None, None, :, None, None]
+    zero = torch.zeros((), device=dev)
+
+    def grab(tt, yy, xx):
+        """(S, pt) frames, (S, ny) rows, (S, nx) columns -> (S, pt, C, ny,
+        nx) values, zero outside the video."""
+        tt = tt[:, :, None, None, None]
+        yy = yy[:, None, None, :, None]
+        xx = xx[:, None, None, None, :]
+        ok = ((tt >= 0) & (tt < t_len) & (yy >= 0) & (yy < h) & (xx >= 0)
+              & (xx < w))
+        v = vid[tt.clamp(0, t_len - 1), ar_c, yy.clamp(0, h - 1),
+                xx.clamp(0, w - 1)]
+        return torch.where(ok, v, zero)
+
     for s0 in range(0, s_cnt, _PLAIN_CHUNK):
-        t = qt[s0:s0 + _PLAIN_CHUNK].long()
-        y = qy[s0:s0 + _PLAIN_CHUNK].long() + half
-        x = qx[s0:s0 + _PLAIN_CHUNK].long() + half
-
-        def frames(tt):
-            ok = (tt >= 0) & (tt < t_len)
-            return torch.where(ok, tt, t_len)
-
-        def grab(tt, yy, xx):                 # -> (S, pt, C, ny, nx)
-            return vp[tt[:, :, None, None, None], ar_c[None, None, :, None, None],
-                      yy[:, None, None, :, None], xx[:, None, None, None, :]]
-
-        tq = frames(t[:, None] + ar_f[None, :])
-        q = grab(tq, y[:, None] + ar_p[None, :], x[:, None] + ar_p[None, :])
-        ry = y[:, None] - half + ar_r[None, :]
-        rx = x[:, None] - half + ar_r[None, :]
+        sl = slice(s0, s0 + _PLAIN_CHUNK)
+        t, y, x = qt[sl].long(), qy[sl].long(), qx[sl].long()
+        q = grab(t[:, None] + ar_f, y[:, None] + ar_p, x[:, None] + ar_p)
         for di in range(n_dt):
-            td = frames(t[:, None] + (dt_lo + di) + ar_f[None, :])
-            reg = grab(td, ry, rx)
+            if sy is None:
+                y0, x0 = y - half, x - half
+            else:
+                y0, x0 = sy[di, sl].long(), sx[di, sl].long()
+            reg = grab(t[:, None] + (dt_lo + di) + ar_f, y0[:, None] + ar_r,
+                       x0[:, None] + ar_r)
             acc = torch.zeros((t.shape[0], w_s, w_s), dtype=torch.float32,
                               device=dev)
             for i in range(ps):
@@ -83,27 +96,32 @@ def patch_dist_plain(vid: torch.Tensor, qt: torch.Tensor, qy: torch.Tensor,
                     d = (q[:, :, :, i:i + 1, j:j + 1]
                          - reg[:, :, :, i:i + w_s, j:j + w_s])
                     acc += (d * d).sum(dim=(1, 2))
-            out[di, s0:s0 + t.shape[0]] = acc.reshape(t.shape[0], -1)
+            out[di, sl] = acc.reshape(t.shape[0], -1)
     return out
 
 
 def patch_dist_kernel(vid: torch.Tensor, qt: torch.Tensor, qy: torch.Tensor,
                       qx: torch.Tensor, dt_lo: int, n_dt: int, pt: int,
-                      ps: int, w_s: int) -> torch.Tensor:
+                      ps: int, w_s: int, sy: Optional[torch.Tensor] = None,
+                      sx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the CUDA kernel; all tensors on one CUDA device."""
-    _check(vid, qt, qy, qx)
-    if not (vid.is_cuda and qt.is_cuda and qy.is_cuda and qx.is_cuda):
+    _check(vid, qt, qy, qx, n_dt, sy, sx)
+    ints = [qt, qy, qx] + ([] if sy is None else [sy, sx])
+    if not (vid.is_cuda and all(v.is_cuda for v in ints)):
         raise ValueError("patch_dist_kernel needs CUDA tensors")
     t_len, c, h, w = vid.shape
     vid = vid.contiguous()
-    qt, qy, qx = (v.to(torch.int32).contiguous() for v in (qt, qy, qx))
+    ints = [v.to(torch.int32).contiguous() for v in ints]
+    starts = (ints[3].data_ptr(), ints[4].data_ptr()) if sy is not None \
+        else (None, None)
     s_cnt = qt.shape[0]
     out = torch.empty((n_dt, s_cnt, w_s * w_s), dtype=torch.float32,
                       device=vid.device)
     lib = _build.library()
     err = lib.vnlb_patch_dist(
-        vid.data_ptr(), t_len, c, h, w, qt.data_ptr(), qy.data_ptr(),
-        qx.data_ptr(), s_cnt, dt_lo, n_dt, pt, ps, w_s, out.data_ptr(),
+        vid.data_ptr(), t_len, c, h, w, ints[0].data_ptr(),
+        ints[1].data_ptr(), ints[2].data_ptr(), *starts, s_cnt, dt_lo, n_dt,
+        pt, ps, w_s, out.data_ptr(),
         torch.cuda.current_stream(vid.device).cuda_stream)
     _build.check(err, "patch_dist kernel")
     patch_dist.launches += 1
@@ -112,13 +130,16 @@ def patch_dist_kernel(vid: torch.Tensor, qt: torch.Tensor, qy: torch.Tensor,
 
 def patch_dist(vid: torch.Tensor, qt: torch.Tensor, qy: torch.Tensor,
                qx: torch.Tensor, dt_lo: int, n_dt: int, pt: int, ps: int,
-               w_s: int) -> torch.Tensor:
+               w_s: int, sy: Optional[torch.Tensor] = None,
+               sx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(n_dt, S, w_s*w_s) raw squared patch distances: the plain version for
     a CPU video, the CUDA kernel for a CUDA video."""
     if vid.device.type == "cpu":
-        return patch_dist_plain(vid, qt, qy, qx, dt_lo, n_dt, pt, ps, w_s)
+        return patch_dist_plain(vid, qt, qy, qx, dt_lo, n_dt, pt, ps, w_s,
+                                sy, sx)
     if vid.device.type == "cuda":
-        return patch_dist_kernel(vid, qt, qy, qx, dt_lo, n_dt, pt, ps, w_s)
+        return patch_dist_kernel(vid, qt, qy, qx, dt_lo, n_dt, pt, ps, w_s,
+                                 sy, sx)
     raise ValueError(f"unsupported device {vid.device}")
 
 

@@ -24,27 +24,11 @@ from __future__ import annotations
 
 from typing import Callable, List, Optional, Tuple
 
-import numpy as np
 import torch
 
 from ..config import StageConfig
 from .patch_dist import patch_dist
-from .search import _apply_tau, _avg_pool2, eff_dt_range
-
-
-def search_levels(video: torch.Tensor, cfg: StageConfig) -> List[torch.Tensor]:
-    """Pyramid levels of the searched channels: level 0 is the first
-    ``dist_chnls`` channels of ``video``; needle search adds pooled levels
-    while they hold a (w_s+ps-1)^2 region."""
-    levels = [video[:, :cfg.dist_chnls].contiguous()]
-    if cfg.stype == "needle":
-        r = cfg.w_s + cfg.ps - 1
-        for _ in range(1, cfg.needle_scales):
-            lh, lw = levels[-1].shape[2] // 2, levels[-1].shape[3] // 2
-            if lh < r or lw < r:
-                break
-            levels.append(_avg_pool2(levels[-1]).contiguous())
-    return levels
+from .search import _apply_tau, eff_dt_range, inv_norm, search_levels
 
 
 def level_queries(sites: torch.Tensor, lvl: int, h_l: int, w_l: int,
@@ -78,8 +62,7 @@ def exec_search_dense(video: torch.Tensor, sites: torch.Tensor,
     half = (w_s - 1) // 2
     ws2 = w_s * w_s
     s_cnt = sites.shape[0]
-    norm = float(cfg.pt * cfg.dist_chnls * cfg.ps * cfg.ps) * 255.0 ** 2
-    inv_norm = float(np.float32(1.0) / np.float32(norm))
+    inv = inv_norm(cfg)
     dt_lo, dt_hi = eff_dt_range(cfg, t_len)
     n_dt = dt_hi - dt_lo + 1
     if n_dt * ws2 < k:
@@ -95,7 +78,7 @@ def exec_search_dense(video: torch.Tensor, sites: torch.Tensor,
         raw = dist_fn(v_l, qt, qy, qx, dt_lo, n_dt, pt, ps, w_s)
         if cfg.search_bf16:
             raw = raw.to(torch.bfloat16).to(torch.float32)
-        part = raw * inv_norm
+        part = raw * inv
         cand = part if cand is None else cand + part
 
     ts, ys, xs = sites[:, 0], sites[:, 1], sites[:, 2]

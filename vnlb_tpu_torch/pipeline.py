@@ -1,13 +1,15 @@
-"""One denoising pass (``proc_nl``) in PyTorch: vnlb_tpu/pipeline.py for
-zero flow, ``border_mode="mask"`` and the exact top-K.
+"""One denoising pass (``proc_nl``) in PyTorch: vnlb_tpu/pipeline.py with
+the exact top-K, both border modes, zero or user-given flow.
 
-RGB -> YUV, the coverage lattice of sites, then for each chunk of sites:
-search (kernel K1 for the distances), patch gather, flat-area flags
-(second pass), the econ Bayes filter (kernel K2), ``agg_k`` thinning and the
-scatter into the column-space accumulator.  After the last chunk: fold,
-normalization with the fallback image, YUV -> RGB.  Chunks bound the
-memory; they are processed in site order, so the scatter adds rows in the
-same order as one scatter over all sites.  The pass is deterministic.
+RGB -> YUV, the coverage lattice of sites in search order (``plan_sites``),
+then for each chunk of sites: search (the dense zero-flow search or the
+per-site gather search, kernel K1 for the distances of both), patch gather
+(kernel K4), flat-area flags (second pass), the econ Bayes filter (kernel
+K2), ``agg_k`` thinning and the scatter into the column-space accumulator.
+After the last chunk: fold, normalization with the fallback image, YUV ->
+RGB.  Chunks bound the memory; they are processed in the planned site
+order, so the scatter adds rows in the same order as JAX's one scatter over
+all site batches.  The pass is deterministic.
 """
 
 from __future__ import annotations
@@ -21,9 +23,11 @@ from .config import StageConfig
 from .ops import agg, color, flat, gather
 from .ops.bayes import bayes_denoise
 from .ops.econ_filter import econ_filter, econ_filter_plain
-from .ops.mask import lattice_sites
+from .ops.mask import interior_split, lattice_sites
 from .ops.patch_dist import patch_dist, patch_dist_plain
-from .ops.search_dense import exec_search_dense, search_levels
+from .ops.patch_gather import patch_gather, patch_gather_plain
+from .ops.search import exec_search, search_levels
+from .ops.search_dense import exec_search_dense
 from .utils.index import check_codec_range
 
 # sites per chunk: bounds the candidate planes, patch gathers and filter
@@ -32,16 +36,19 @@ SITE_CHUNK = 4096
 
 
 class Kernels(NamedTuple):
-    """The two kernel functions a pass calls."""
+    """The kernel functions a pass calls."""
 
     patch_dist: object
     econ_filter: object
+    patch_gather: object
 
 
 # the device-dispatching wrappers (kernels on CUDA, plain versions on CPU)
-KERNELS = Kernels(patch_dist=patch_dist, econ_filter=econ_filter)
+KERNELS = Kernels(patch_dist=patch_dist, econ_filter=econ_filter,
+                  patch_gather=patch_gather)
 # the plain PyTorch versions on any device (on-card comparison)
-PLAIN = Kernels(patch_dist=patch_dist_plain, econ_filter=econ_filter_plain)
+PLAIN = Kernels(patch_dist=patch_dist_plain, econ_filter=econ_filter_plain,
+                patch_gather=patch_gather_plain)
 
 
 def check_supported(cfg: StageConfig) -> None:
@@ -51,9 +58,8 @@ def check_supported(cfg: StageConfig) -> None:
         raise NotImplementedError(
             f"vnlb_tpu_torch does not run {what} yet (ROADMAP.md, {item})")
 
-    if cfg.border_mode != "mask":
-        no(f"border_mode={cfg.border_mode!r}", "item 8: slide borders and "
-           "flow search")
+    if cfg.dense_rows == "full":
+        no("dense_rows='full'", "item 13: kernel K3")
     if cfg.topk != "exact":
         no(f"topk={cfg.topk!r}", "item 9: streaming and approximate top-K")
     if cfg.poly_impl == "pallas":
@@ -77,17 +83,31 @@ def check_supported(cfg: StageConfig) -> None:
         no("agg_bf16=True", modes)
 
 
-def plan_sites(shape, cfg: StageConfig) -> np.ndarray:
-    """Sites of the pass, in raster order: with ``border_mode="mask"``
-    every lattice site takes the dense search."""
-    return lattice_sites(shape, cfg)
+def plan_sites(shape, cfg: StageConfig, zero_flow: bool):
+    """Sites of the pass in search order (vnlb_tpu/pipeline.py:341-368):
+    (sites (S, 3) int32, n_dense).  The first ``n_dense`` sites take the
+    dense zero-flow search, the rest the per-site gather search.
+
+    * nonzero flow: every lattice site, raster order, gather search;
+    * zero flow, ``border_mode="mask"``: every site, dense search;
+    * zero flow, ``border_mode="slide"``: interior sites (dense search),
+      then border sites (gather search)."""
+    sites = lattice_sites(shape, cfg)
+    if not zero_flow:
+        return sites, 0
+    if cfg.border_mode == "mask":
+        return sites, sites.shape[0]
+    interior, border = interior_split(sites, shape, cfg)
+    return np.concatenate([interior, border]), interior.shape[0]
 
 
 def accumulate(noisy_yuv: torch.Tensor, basic_yuv: torch.Tensor,
-               srch_yuv: torch.Tensor, sites: torch.Tensor,
+               srch_yuv: torch.Tensor, fflow: torch.Tensor,
+               bflow: torch.Tensor, sites: torch.Tensor, n_dense: int,
                cfg: StageConfig, kernels: Kernels = KERNELS):
     """All sites -> image-space (deno (T, C, H, W), weights (T, H, W))
-    accumulators, un-normalized."""
+    accumulators, un-normalized.  Chunks never mix the dense and the
+    gather sites."""
     shape = tuple(noisy_yuv.shape)
     t_len, c, h, w = shape
     hp, wp = h - cfg.ps + 1, w - cfg.ps + 1
@@ -98,17 +118,25 @@ def accumulate(noisy_yuv: torch.Tensor, basic_yuv: torch.Tensor,
                       device=dev)
     ka = (cfg.agg_k if cfg.agg_k and cfg.agg_k < cfg.npatches
           else cfg.npatches)
+    s_cnt = sites.shape[0]
+    bounds = ([(s0, min(s0 + SITE_CHUNK, n_dense))
+               for s0 in range(0, n_dense, SITE_CHUNK)]
+              + [(s0, min(s0 + SITE_CHUNK, s_cnt))
+                 for s0 in range(n_dense, s_cnt, SITE_CHUNK)])
 
-    for s0 in range(0, sites.shape[0], SITE_CHUNK):
-        chunk = sites[s0:s0 + SITE_CHUNK]
-        vals, inds = exec_search_dense(srch_yuv, chunk, cfg, levels=levels,
-                                       dist_fn=kernels.patch_dist)
-        f, y, x = gather.decode_corners(inds, shape, cfg.ps, cfg.pt)
-        pnoisy = gather.gather_patches(noisy_yuv, f, y, x, cfg.ps, cfg.pt,
-                                       cfg.cols_bf16)
+    for s0, s1 in bounds:
+        chunk = sites[s0:s1]
+        if s0 < n_dense:
+            vals, inds = exec_search_dense(srch_yuv, chunk, cfg,
+                                           levels=levels,
+                                           dist_fn=kernels.patch_dist)
+        else:
+            vals, inds = exec_search(srch_yuv, chunk, fflow, bflow, cfg,
+                                     levels=levels,
+                                     dist_fn=kernels.patch_dist)
         if cfg.step == 1:
-            pbasic = gather.gather_patches(basic_yuv, f, y, x, cfg.ps,
-                                           cfg.pt, cfg.cols_bf16)
+            pnoisy, pbasic = kernels.patch_gather(
+                [noisy_yuv, basic_yuv], inds, cfg.ps, cfg.pt, cfg.cols_bf16)
             flags = (flat.flat_areas(pnoisy, cfg.gamma, cfg.sigma2)
                      if cfg.flat_areas else
                      torch.zeros((chunk.shape[0],), dtype=torch.bool,
@@ -116,6 +144,8 @@ def accumulate(noisy_yuv: torch.Tensor, basic_yuv: torch.Tensor,
             pfilt, _ = bayes_denoise(pnoisy, pbasic, flags, cfg,
                                      filter_fn=kernels.econ_filter)
         else:
+            (pnoisy,) = kernels.patch_gather([noisy_yuv], inds, cfg.ps,
+                                             cfg.pt, cfg.cols_bf16)
             pfilt, _ = bayes_denoise(pnoisy, None, None, cfg,
                                      filter_fn=kernels.econ_filter)
         # thin the scatter to the best agg_k candidates (vals ascend); the
@@ -126,11 +156,29 @@ def accumulate(noisy_yuv: torch.Tensor, basic_yuv: torch.Tensor,
     return agg.fold(acc, cfg.pt, cfg.ps, shape)
 
 
+def _as_flow(flow, shape, device) -> torch.Tensor:
+    t_len, _, h, w = shape
+    if flow is None:
+        return torch.zeros((t_len, 2, h, w), dtype=torch.float32,
+                           device=device)
+    if isinstance(flow, torch.Tensor):
+        flow = flow.to(device=device, dtype=torch.float32)
+    else:
+        flow = torch.as_tensor(np.asarray(flow, np.float32), device=device)
+    if tuple(flow.shape) != (t_len, 2, h, w):
+        raise ValueError(f"flow must be {(t_len, 2, h, w)}, got "
+                         f"{tuple(flow.shape)}")
+    return flow
+
+
 def proc_nl(noisy: torch.Tensor, basic: Optional[torch.Tensor],
-            clean: Optional[torch.Tensor], cfg: StageConfig,
+            clean: Optional[torch.Tensor], fflow, bflow, cfg: StageConfig,
+            zero_flow: Optional[bool] = None,
             kernels: Kernels = KERNELS) -> torch.Tensor:
-    """One pass, zero flow: RGB (T, C, H, W) in, RGB denoised out, on the
-    device of ``noisy``."""
+    """One pass: RGB (T, C, H, W) in, RGB denoised out, on the device of
+    ``noisy``.  ``fflow``/``bflow`` are (T, 2, H, W) flows (None: zero).
+    ``zero_flow`` selects the dense search for the planned sites; when
+    None it is detected from the flow values."""
     check_supported(cfg)
     noisy = noisy.to(torch.float32)
     shape = tuple(int(s) for s in noisy.shape)
@@ -140,6 +188,10 @@ def proc_nl(noisy: torch.Tensor, basic: Optional[torch.Tensor],
         raise ValueError(
             f"frame {shape[2]}x{shape[3]} smaller than search region "
             f"{r}x{r}; reduce w_s or pad the video")
+    fflow = _as_flow(fflow, shape, noisy.device)
+    bflow = _as_flow(bflow, shape, noisy.device)
+    if zero_flow is None:
+        zero_flow = not bool(fflow.any()) and not bool(bflow.any())
     basic = noisy if basic is None else basic.to(torch.float32)
     noisy_yuv = color.rgb2yuv(noisy)
     basic_yuv = color.rgb2yuv(basic)
@@ -152,8 +204,9 @@ def proc_nl(noisy: torch.Tensor, basic: Optional[torch.Tensor],
                              else clean.to(torch.float32))
     else:
         raise ValueError(f"unknown srch_img [{cfg.srch_img}]")
-    sites = torch.as_tensor(plan_sites(shape, cfg), device=noisy.device)
-    deno_img, wts_img = accumulate(noisy_yuv, basic_yuv, srch, sites, cfg,
-                                   kernels)
+    sites, n_dense = plan_sites(shape, cfg, zero_flow)
+    sites = torch.as_tensor(sites, device=noisy.device)
+    deno_img, wts_img = accumulate(noisy_yuv, basic_yuv, srch, fflow, bflow,
+                                   sites, n_dense, cfg, kernels)
     fallback = basic_yuv if cfg.step == 1 else noisy_yuv
     return color.yuv2rgb(agg.finalize_img(deno_img, wts_img, fallback))

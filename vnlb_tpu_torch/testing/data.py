@@ -31,6 +31,20 @@ def synthetic_video(t: int, h: int, w: int, seed: int = 0,
     return np.stack(frames).astype(np.float32)
 
 
+def drift_flows(t: int, h: int, w: int, motion: float = 1.5):
+    """(T-1)-frame (fflow, bflow) stacks of ``synthetic_video``'s texture
+    drift: frame i is the texture shifted by (dy_i, dx_i) = (round(motion*i),
+    round(0.5*motion*i)), so fflow[i] = (dx_i - dx_{i+1}, dy_i - dy_{i+1})
+    and the backward flow of frame i+1 is its negation.  The moving square
+    is not tracked."""
+    dy = np.array([round(motion * i) for i in range(t)], np.float32)
+    dx = np.array([round(0.5 * motion * i) for i in range(t)], np.float32)
+    fflow = np.zeros((t - 1, 2, h, w), np.float32)
+    fflow[:, 0] = (dx[:-1] - dx[1:])[:, None, None]
+    fflow[:, 1] = (dy[:-1] - dy[1:])[:, None, None]
+    return fflow, -fflow
+
+
 def add_noise(clean: np.ndarray, sigma: float, seed: int = 123) -> np.ndarray:
     rng = np.random.default_rng(seed)
     return (clean + rng.normal(0.0, sigma, clean.shape)).astype(np.float32)

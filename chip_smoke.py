@@ -4,16 +4,21 @@
     python3 chip_smoke.py
 
 Builds the kernels from vnlb_tpu_torch/csrc, checks each kernel against its
-plain PyTorch version at the shapes of the main paths, then runs the
-two-pass ``denoise`` on a 5x480x854 clip at sigma=20 three ways and checks
+plain PyTorch version at the shapes of the main paths, holds small-clip
+PSNRs of every preset and filter mode to the JAX package's, then runs the
+two-pass ``denoise`` on a 5x480x854 clip at sigma=20 five ways and checks
 each output: the bench config (preset iphone, eig_method poly, step_s 6,
-border_mode mask, topk exact, zero flow), and the API default
-(``denoise(noisy, sigma)`` with no cfg: step_s 3, sliding borders) with
-zero flow and with the clip's own drift flow.  Every phase prints one line;
-any failure raises and the script exits nonzero.  The second-to-last line
-is the kernel table as JSON, the last line the device record.  Without a
-CUDA card, or without the repository beside it, the script fails and
-prints no result.
+border_mode mask, topk exact, zero flow), the API default (``denoise(noisy,
+sigma)`` with no cfg: step_s 3, sliding borders) with zero flow and with
+the clip's own drift flow, the API default with ``poly_impl="pallas"``
+(kernel K5 in both passes) and the ``default`` preset (w_s=27, pt=2 in
+the first pass: K2 on groups beyond shared memory).  Every phase prints
+one line; any failure raises and the script exits nonzero.  The
+second-to-last line is the kernel table as JSON (each kernel's time, its
+plain version's and its bound: the larger of its bytes over the memory
+rate and its operations over the peak rate of their type), the last line
+the device record.  Without a CUDA card, or without the repository beside
+it, the script fails and prints no result.
 """
 
 import json
@@ -32,6 +37,34 @@ BENCH = dict(preset="iphone", eig_method="poly", step_s=6,
 REF_SMALL = dict(basic=30.025878, deno=30.125710)
 REF_SMALL_API = {"zero": dict(basic=29.962152, deno=30.117215),
                  "drift": dict(basic=30.156511, deno=30.210914)}
+# the same clip, zero flow: the other presets, and the API default with
+# each filter mode (overrides of default_config).  poly_impl="pallas" is
+# held to JAX's plain version of the same function (poly_econ and
+# poly_fused off), which the JAX package runs on the CPU.
+REF_SMALL_MODES = {
+    "preset_default": (dict(preset="default"),
+                       dict(basic=29.581324, deno=30.194836)),
+    "preset_exp": (dict(preset="exp"), dict(basic=29.581324, deno=30.194836)),
+    "preset_sss": (dict(preset="sss"), dict(basic=29.752531, deno=30.200173)),
+    "preset_sss_v2": (dict(preset="sss_v2"),
+                      dict(basic=30.110754, deno=30.214864)),
+    "eig_xla": (dict(eig_method="xla"), dict(basic=30.032406, deno=30.152225)),
+    "eig_jacobi": (dict(eig_method="jacobi"),
+                   dict(basic=30.032417, deno=30.152266)),
+    "eig_rational": (dict(eig_method="rational"),
+                     dict(basic=29.437425, deno=30.118546)),
+    "poly_econ_off": (dict(poly_econ=False),
+                      dict(basic=30.020913, deno=30.133796)),
+    "poly_pallas": (dict(poly_impl="pallas"),
+                    dict(basic=30.020913, deno=30.153355)),
+    "couple_channels": (dict(couple_channels=True),
+                        dict(basic=29.922595, deno=30.464622)),
+    "deno_ave": (dict(deno="ave"), dict(basic=22.119456, deno=22.119456)),
+}
+# H100 SXM data-sheet peaks: f32 on CUDA cores, bf16 on tensor cores (a
+# product of bf16-rounded operands accumulated in f32 is exactly what a
+# bf16 tensor-core MMA computes), HBM3
+PEAK_F32, PEAK_BF16, HBM_BPS = 67e12, 989e12, 3.35e12
 
 
 def log(phase, **kv):
@@ -68,9 +101,69 @@ def rel_err(got, want):
     return ((got - want).abs() / want.abs().clamp(min=1.0)).max().item()
 
 
-def e2e(vt, name, noisy, clean, dev, counters, cfg=None, flows=None):
+def bound(f32_flops, bf16_flops, nbytes):
+    """(least ms the card could take, what bounds it)."""
+    t_ops = f32_flops / PEAK_F32 + bf16_flops / PEAK_BF16
+    t_mem = nbytes / HBM_BPS
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem
+                                     else "bytes")
+
+
+def k1_work(sites, vid, scfg, starts=0):
+    """bound() of K1 over 7 dt planes: per (site, dt, candidate, pixel) a
+    subtraction and a multiply-add in f32; the video and the (S, 3) query
+    sites (and ``starts`` (7, S) int32 window-start tensors) read once,
+    the distances written once."""
+    n = sites.shape[0]
+    flops = 3 * n * 7 * scfg.w_s ** 2 * scfg.pt * vid.shape[1] \
+        * scfg.ps ** 2
+    nbytes = (vid.numel() * 4 + sites.numel() * sites.element_size()
+              + starts * 7 * n * 4 + n * 7 * scfg.w_s ** 2 * 4)
+    return bound(flops, 0, nbytes)
+
+
+def econ_work(g, k, p, scfg):
+    """(f32 flops, bf16-operand flops, bytes) of K2 on g groups of (k, p):
+    the covariance or Gram (and xn xc^T) products take f32 operands, the
+    chain and the applications bf16-rounded ones (f32 without
+    poly_bf16)."""
+    from vnlb_tpu_torch.ops.polyspec import econ_params
+
+    ep = econ_params(scfg)
+    chain = {4: 3, 3: 2, 2: 1}[ep["s"]] + ep["m"] - 1
+    if k < p:
+        f32, low = 2 * k * k * p, (chain + 1) * k ** 3 + k * k * p
+    else:
+        f32, low = k * p * p, chain * p ** 3 + k * p * p
+    if not ep["rnd"]:
+        f32, low = f32 + low, 0
+    return 2 * g * f32, 2 * g * low, 3 * g * k * p * 4
+
+
+def poly_work(g, k, p, scfg):
+    """(f32 flops, bf16-operand flops, bytes) of K5 on g groups of (k, p):
+    the covariance and the xn-side product (xn W left, xn F right) take f32
+    operands; the sign gate, the T_j products and F = W Q bf16-rounded
+    ones (f32 without poly_bf16)."""
+    from vnlb_tpu_torch.ops.polyspec import poly_params
+
+    pp = poly_params(scfg)
+    gate = (3 * pp["n_aggr"] + 2 * pp["n_polish"]) * p ** 3
+    f32 = 2 * k * p * p
+    if k >= p:
+        low = gate + pp["wdeg"] * p ** 3
+    else:
+        low = gate + pp["wdeg"] * k * p * p
+    if not pp["rnd"]:
+        f32, low = f32 + low, 0
+    return 2 * g * f32, 2 * g * low, 3 * g * k * p * 4
+
+
+def e2e(vt, name, noisy, clean, dev, counters, expect, cfg=None,
+        flows=None):
     """The main path at full size: one counted warmup run, best of 3 with a
-    bitwise repeat check, the output checks and the plain-version pass."""
+    bitwise repeat check, the output checks and the plain-version pass.
+    ``expect`` names the counters that must launch (the others must not)."""
     from vnlb_tpu_torch.utils.metrics import compute_psnr
 
     for c in counters:
@@ -78,9 +171,9 @@ def e2e(vt, name, noisy, clean, dev, counters, cfg=None, flows=None):
     deno, basic, first_s = vt.denoise(noisy, SIGMA, flows=flows, cfg=cfg,
                                       device=dev)
     launches = {c.__name__: c.launches for c in counters}
-    if not all(n > 0 for n in launches.values()):
-        raise AssertionError(f"{name}: main path skipped a kernel: "
-                             f"{launches}")
+    if any((n > 0) != (c in expect) for c, n in launches.items()):
+        raise AssertionError(f"{name}: launches {launches}, expected "
+                             f"kernels {sorted(expect)}")
     log(f"{name}_warmup", seconds=f"{first_s:.3f}", **launches)
 
     noisy_t = torch.from_numpy(noisy).to(dev)
@@ -136,6 +229,7 @@ def main():
     from vnlb_tpu_torch.ops.patch_dist import patch_dist, patch_dist_plain
     from vnlb_tpu_torch.ops.patch_gather import (patch_gather,
                                                  patch_gather_plain)
+    from vnlb_tpu_torch.ops.poly_filter import poly_filter, poly_filter_plain
     from vnlb_tpu_torch.ops.search import exec_search, search_levels
     from vnlb_tpu_torch.ops.search_dense import (exec_search_dense,
                                                  level_queries)
@@ -214,8 +308,10 @@ def main():
             s1.w_s)
     k1_ms = cuda_ms(lambda: patch_dist(*args), 5)
     k1_plain_ms = cuda_ms(lambda: patch_dist_plain(*args), 1)
+    k1_bound = k1_work(sites, v_l, s1)
     log("k1_time", shape=f"s1.l0 sites={sites.shape[0]} dt_planes=7",
-        kernel_ms=f"{k1_ms:.3f}", plain_ms=f"{k1_plain_ms:.3f}")
+        kernel_ms=f"{k1_ms:.3f}", plain_ms=f"{k1_plain_ms:.3f}",
+        bound_ms=f"{k1_bound[0]:.4f}", bound_by=k1_bound[1])
 
     # ---- 4. K1's window-start entry vs plain: the gather search of the
     # API default at 480p (every border site of both stages, and 4096
@@ -262,8 +358,10 @@ def main():
             a1.ps, a1.w_s)
     k1w_ms = cuda_ms(lambda: patch_dist(*args, sy=sy, sx=sx), 5)
     k1w_plain_ms = cuda_ms(lambda: patch_dist_plain(*args, sy=sy, sx=sx), 1)
+    k1w_bound = k1_work(sites, v_l, a1, starts=2)
     log("k1_windows_time", shape="s1.l0 sites=4096 dt_planes=7",
-        kernel_ms=f"{k1w_ms:.3f}", plain_ms=f"{k1w_plain_ms:.3f}")
+        kernel_ms=f"{k1w_ms:.3f}", plain_ms=f"{k1w_plain_ms:.3f}",
+        bound_ms=f"{k1w_bound[0]:.4f}", bound_by=k1w_bound[1])
 
     # ---- 5. K4 vs plain at main-path shapes: one 4096-site chunk of the
     # API default's top-K, stage 0 (K=100, pt=1, one video) and stage 1
@@ -287,42 +385,73 @@ def main():
                                            scfg.cols_bf16), 10)
         pms = cuda_ms(lambda: patch_gather_plain(videos, inds, scfg.ps,
                                                  scfg.pt, scfg.cols_bf16), 3)
-        k4_times[name] = (kms, pms)
+        # a copy: the videos and the indices read once, the rows written
+        k4_times[name] = (kms, pms, bound(
+            0, 0, sum(g.numel() for g in got) * 4
+            + sum(v.numel() for v in videos) * 4 + inds.numel() * 4))
         mb = sum(g.numel() for g in got) * 4 / 1e6
         log("k4", stage=name, B=inds.shape[0], K=inds.shape[1],
             videos=len(videos), out_mb=f"{mb:.1f}", bitwise=True,
             kernel_ms=f"{kms:.3f}", plain_ms=f"{pms:.3f}",
-            kernel_gb_s=f"{mb / kms:.1f}")
+            kernel_gb_s=f"{mb / kms:.1f}",
+            bound_ms=f"{k4_times[name][2][0]:.4f}",
+            bound_by=k4_times[name][2][1])
         del got, want
 
     # ---- 6. K2 vs plain, both routes, at G=768 and at the main path's
-    # chunk of 4096 sites x 3 channels ----
+    # chunk of 4096 sites x 3 channels (iphone shapes), then at the group
+    # shapes beyond shared memory (pt=2 first pass, couple_channels) ----
+    def filter_check(tag, fn, plain, work, scfg, g, k, p, tol, reps):
+        base = rng.normal(size=(g, 1, p)).astype(np.float32) * 30
+        xc = torch.from_numpy(base + rng.normal(size=(g, k, p))
+                              .astype(np.float32) * 20).to(dev)
+        xn = torch.from_numpy(base + rng.normal(size=(g, k, p))
+                              .astype(np.float32) * 20).to(dev)
+        got = fn(xc, xn, scfg)
+        want = plain(xc, xn, scfg)
+        torch.cuda.synchronize()
+        scale = want.abs().mean().item()
+        rms = ((got - want) ** 2).mean().sqrt().item() / scale
+        err = (got - want).abs().max().item()
+        if not (rms < tol and torch.isfinite(got).all()):
+            raise AssertionError(f"{tag} G={g} ({k}, {p}): rms/scale {rms}")
+        kms = cuda_ms(lambda: fn(xc, xn, scfg), reps)
+        pms = cuda_ms(lambda: plain(xc, xn, scfg), reps)
+        bms, by = bound(*work(g, k, p, scfg))
+        log(tag, G=g, K=k, p=p, rms_over_scale=f"{rms:.3g}",
+            kernel_ms=f"{kms:.3f}", plain_ms=f"{pms:.3f}",
+            bound_ms=f"{bms:.4f}", bound_by=by)
+        return err, (kms, pms, (bms, by))
+
     k2_err = 0.0
     k2_times = {}
     rng = np.random.default_rng(0)
+    dflt0 = vt.default_config(SIGMA, preset="default").stage(0)
+    k2_cases = [(g, name, scfg, scfg.npatches, scfg.pdim)
+                for g in (768, 3 * 4096)
+                for name, scfg in (("matrix(s0)", s0), ("gram(s1)", s1))]
+    k2_cases += [(768, "matrix(default s0)", dflt0, 100, 98),
+                 (3 * 4096, "matrix(default s0)", dflt0, 100, 98),
+                 (768, "gram(couple s0)", s0, 100, 147),
+                 (768, "gram(couple s1)", s1, 60, 294),
+                 (768, "gram(couple default s0)", dflt0, 100, 294)]
+    for g, name, scfg, k, p in k2_cases:
+        err, k2_times[name, g] = filter_check(
+            f"k2 {name}", econ_filter, econ_filter_plain, econ_work, scfg,
+            g, k, p, 5e-3, 5)
+        k2_err = max(k2_err, err)
+
+    # ---- 6b. K5 vs plain: right route (stage 0, K=100 >= p=49) and left
+    # route (stage 1, K=60 < p=98), at G=768 and at one chunk ----
+    k5_err = 0.0
+    k5_times = {}
     for g in (768, 3 * 4096):
-        for name, scfg in (("matrix(s0)", s0), ("gram(s1)", s1)):
-            k, p = scfg.npatches, scfg.pdim
-            base = rng.normal(size=(g, 1, p)).astype(np.float32) * 30
-            xc = torch.from_numpy(base + rng.normal(size=(g, k, p))
-                                  .astype(np.float32) * 20).to(dev)
-            xn = torch.from_numpy(base + rng.normal(size=(g, k, p))
-                                  .astype(np.float32) * 20).to(dev)
-            got = econ_filter(xc, xn, scfg)
-            want = econ_filter_plain(xc, xn, scfg)
-            torch.cuda.synchronize()
-            scale = want.abs().mean().item()
-            rms = ((got - want) ** 2).mean().sqrt().item() / scale
-            k2_err = max(k2_err, (got - want).abs().max().item())
-            if not (rms < 5e-3 and torch.isfinite(got).all()):
-                raise AssertionError(f"K2 {name} G={g}: rms/scale {rms}")
-            kms = cuda_ms(lambda: econ_filter(xc, xn, scfg), 5)
-            pms = cuda_ms(lambda: econ_filter_plain(xc, xn, scfg), 5)
-            k2_times[name, g] = (kms, pms)
-            log("k2", route=name, G=g, K=k, p=p,
-                rms_over_scale=f"{rms:.3g}", kernel_ms=f"{kms:.3f}",
-                plain_ms=f"{pms:.3f}")
-            del xc, xn, got, want
+        for name, scfg in (("right(s0)", a0), ("left(s1)", a1)):
+            err, k5_times[name, g] = filter_check(
+                f"k5 {name}", poly_filter, poly_filter_plain, poly_work,
+                scfg, g, scfg.npatches, scfg.pdim, 2e-2,
+                5 if g == 768 else 2)
+            k5_err = max(k5_err, err)
 
     # ---- 7. small-clip parity with the JAX package (CPU numbers) ----
     small_clean = synthetic_video(5, 96, 112, seed=0)
@@ -330,49 +459,69 @@ def main():
     runs = [("small_clip", REF_SMALL, cfg, None)] + [
         (f"small_clip_api_{fl}", REF_SMALL_API[fl], None,
          drift_flows(5, 96, 112) if fl == "drift" else None)
-        for fl in ("zero", "drift")]
+        for fl in ("zero", "drift")] + [
+        (f"small_clip_{name}", ref, vt.default_config(SIGMA, **kw), None)
+        for name, (kw, ref) in REF_SMALL_MODES.items()]
     for name, ref, rcfg, flows in runs:
-        d, b, _ = vt.denoise(small_noisy, SIGMA, flows=flows, cfg=rcfg,
-                             device=dev)
+        d, b, sec = vt.denoise(small_noisy, SIGMA, flows=flows, cfg=rcfg,
+                               device=dev)
         pb = compute_psnr(b.cpu().numpy(), small_clean)
         pd = compute_psnr(d.cpu().numpy(), small_clean)
         if not (abs(pb - ref["basic"]) < 0.02
                 and abs(pd - ref["deno"]) < 0.02):
             raise AssertionError(f"{name} PSNR {pb}/{pd} vs JAX {ref}")
         log(name, basic_psnr=f"{pb:.4f}", deno_psnr=f"{pd:.4f}",
-            jax_cpu=f"{ref['basic']}/{ref['deno']}")
+            jax_cpu=f"{ref['basic']}/{ref['deno']}", seconds=f"{sec:.2f}")
 
     # ---- 8. end to end at 5x480x854: each main path with the launch
     # counts set to 0 just before it and read just after ----
-    counters = (patch_dist, econ_filter, patch_gather)
+    counters = (patch_dist, econ_filter, patch_gather, poly_filter)
+    k124 = {"patch_dist", "econ_filter", "patch_gather"}
+    k145 = {"patch_dist", "patch_gather", "poly_filter"}
     launches = {
-        "e2e": e2e(vt, "e2e", noisy, clean, dev, counters, cfg=cfg),
+        "e2e": e2e(vt, "e2e", noisy, clean, dev, counters, k124, cfg=cfg),
         "e2e_api_zero": e2e(vt, "e2e_api_zero", noisy, clean, dev,
-                            counters),
+                            counters, k124),
         "e2e_api_drift": e2e(vt, "e2e_api_drift", noisy, clean, dev,
-                             counters, flows=drift),
+                             counters, k124, flows=drift),
+        "e2e_poly_pallas": e2e(
+            vt, "e2e_poly_pallas", noisy, clean, dev, counters, k145,
+            cfg=vt.default_config(SIGMA, poly_impl="pallas")),
+        "e2e_preset_default": e2e(
+            vt, "e2e_preset_default", noisy, clean, dev, counters, k124,
+            cfg=vt.default_config(SIGMA, preset="default")),
     }
     main_path = launches["e2e_api_zero"]
 
     # ---- 9. records ----
-    kms, pms = k2_times["gram(s1)", 3 * 4096]
-    g_kms, g_pms = k4_times["s1"]
+    kms, pms, (k2_bms, k2_by) = k2_times["gram(s1)", 3 * 4096]
+    g_kms, g_pms, (k4_bms, k4_by) = k4_times["s1"]
+    p_kms, p_pms, (k5_bms, k5_by) = k5_times["left(s1)", 3 * 4096]
     print(json.dumps({"kernels": [
         {"name": "patch_dist", "route": "cuda",
          "source": "vnlb_tpu_torch/csrc/patch_dist.cu",
          "replaces": "vnlb_tpu/ops/pallas_smat.py:378",
          "launches": main_path["patch_dist"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
         {"name": "econ_filter", "route": "cuda",
          "source": "vnlb_tpu_torch/csrc/econ_filter.cu",
          "replaces": "vnlb_tpu/ops/pallas_filter.py:260",
          "launches": main_path["econ_filter"], "max_abs_err": k2_err,
-         "ms": kms, "plain_ms": pms},
+         "ms": kms, "plain_ms": pms, "bound_ms": k2_bms, "bound_by": k2_by,
+         "library_ms": None},
         {"name": "patch_gather", "route": "cuda",
          "source": "vnlb_tpu_torch/csrc/patch_gather.cu",
          "replaces": "vnlb_tpu/ops/pallas_gather.py:176",
          "launches": main_path["patch_gather"], "max_abs_err": k4_err,
-         "ms": g_kms, "plain_ms": g_pms},
+         "ms": g_kms, "plain_ms": g_pms, "bound_ms": k4_bms,
+         "bound_by": k4_by, "library_ms": None},
+        {"name": "poly_filter", "route": "cuda",
+         "source": "vnlb_tpu_torch/csrc/poly_filter.cu",
+         "replaces": "vnlb_tpu/ops/pallas_poly.py:153",
+         "launches": launches["e2e_poly_pallas"]["poly_filter"],
+         "max_abs_err": k5_err, "ms": p_kms, "plain_ms": p_pms,
+         "bound_ms": k5_bms, "bound_by": k5_by, "library_ms": None},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,6 +17,7 @@ from vnlb_tpu_torch.ops.econ_filter import econ_filter, econ_filter_plain
 from vnlb_tpu_torch.ops.mask import lattice_sites
 from vnlb_tpu_torch.ops.patch_dist import patch_dist, patch_dist_plain
 from vnlb_tpu_torch.ops.patch_gather import patch_gather, patch_gather_plain
+from vnlb_tpu_torch.ops.poly_filter import poly_filter, poly_filter_plain
 from vnlb_tpu_torch.ops.search import _window_starts, track_centers
 from vnlb_tpu_torch.testing.data import add_noise, drift_flows, synthetic_video
 from vnlb_tpu_torch.utils.metrics import compute_psnr
@@ -172,11 +173,90 @@ def test_site_chunks_bitwise_on_card(card, monkeypatch):
     assert torch.equal(vt.proc_nl(vid, vid, None, None, None, cfg), whole)
 
 
+def _groups(rng, g, k, p, card):
+    base = rng.normal(size=(g, 1, p)).astype(np.float32) * 30
+    return tuple(torch.from_numpy(base + rng.normal(size=(g, k, p))
+                                  .astype(np.float32) * 20).to(card)
+                 for _ in range(2))
+
+
+def _rel_rms(got, want):
+    return (((got - want) ** 2).mean().sqrt() / want.abs().mean()).item()
+
+
 @pytest.mark.cuda
-def test_econ_filter_kernel_refuses_oversized_group(card):
-    """A matrix-route group with p=98 at K=100 does not fit the kernel's
-    shared memory: it raises, it does not fall back."""
-    cfg = vt.default_config(20.0, preset="default").stage(0)
-    x = torch.zeros((2, 100, 98), device=card)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        econ_filter(x, x, cfg)
+@pytest.mark.parametrize("preset,stage,k,p", [
+    ("default", 0, 100, 98), ("iphone", 0, 100, 147), ("iphone", 1, 60, 294),
+    ("default", 0, 100, 294)])
+def test_econ_filter_kernel_large_groups(card, preset, stage, k, p):
+    """Groups beyond shared memory (pt=2 first pass, couple_channels):
+    spilled matrices in the per-block workspace, patch blocks read in
+    place; 300 groups exceed one persistent grid."""
+    cfg = vt.default_config(20.0, preset=preset).stage(stage)
+    xc, xn = _groups(np.random.default_rng(k + p), 300, k, p, card)
+    before = econ_filter.launches
+    got = econ_filter(xc, xn, cfg)
+    want = econ_filter_plain(xc, xn, cfg)
+    torch.cuda.synchronize()
+    assert econ_filter.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert _rel_rms(got, want) < 5e-2
+    got32 = econ_filter(xc, xn, cfg.replace(poly_bf16=False))
+    want32 = econ_filter_plain(xc, xn, cfg.replace(poly_bf16=False))
+    assert _rel_rms(got32, want32) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage,bf16", [(0, True), (1, True), (0, False),
+                                        (1, False)])
+def test_poly_filter_kernel_matches_plain(card, stage, bf16):
+    """K5 on both routes: right (stage 0, K=100 >= p=49), left (stage 1,
+    K=60 < p=98); same cast points, other summation order."""
+    cfg = vt.default_config(20.0).stage(stage).replace(poly_bf16=bf16)
+    xc, xn = _groups(np.random.default_rng(40 + stage), 64, cfg.npatches,
+                     cfg.pdim, card)
+    before = poly_filter.launches
+    got = poly_filter(xc, xn, cfg)
+    want = poly_filter_plain(xc, xn, cfg)
+    torch.cuda.synchronize()
+    assert poly_filter.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert _rel_rms(got, want) < (5e-2 if bf16 else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["econ", "poly"])
+def test_filter_kernels_refuse_degree_beyond_tables(card, which):
+    """A fused degree of 80 needs 84 econ coefficients and 168 nodes, a
+    Wiener degree of 80 81 coefficients: beyond the kernels' tables."""
+    cfg = vt.default_config(20.0).stage(0)
+    x = torch.zeros((2, 100, 49), device=card)
+    with pytest.raises(NotImplementedError, match="coefficients"):
+        if which == "econ":
+            econ_filter(x, x, cfg.replace(poly_deg_fused=80))
+        else:
+            poly_filter(x, x, cfg.replace(poly_deg=80))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["preset_default", "poly_pallas"])
+def test_filter_paths_launch_kernels(card, name):
+    """The default preset (w_s=27, K2 on K=100, p=98 groups) and
+    poly_impl="pallas" (K5 in both passes, K2 never) run on the card."""
+    clean = synthetic_video(5, 96, 112, seed=0)
+    noisy = add_noise(clean, 20.0, seed=1)
+    cfg = (vt.default_config(20.0, preset="default")
+           if name == "preset_default" else
+           vt.default_config(20.0, poly_impl="pallas"))
+    for c in (patch_dist, econ_filter, patch_gather, poly_filter):
+        c.launches = 0
+    deno, _, _ = vt.denoise(noisy, 20.0, cfg=cfg, device=card)
+    assert min(patch_dist.launches, patch_gather.launches) > 0
+    if name == "preset_default":
+        assert econ_filter.launches > 0 and poly_filter.launches == 0
+    else:
+        assert poly_filter.launches > 0 and econ_filter.launches == 0
+    again, _, _ = vt.denoise(noisy, 20.0, cfg=cfg, device=card)
+    assert torch.equal(deno, again)
+    assert compute_psnr(deno.cpu().numpy(), clean) > \
+        compute_psnr(noisy, clean) + 6.0

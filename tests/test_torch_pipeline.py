@@ -2,7 +2,9 @@
 each pass and the two-pass ``denoise`` on a (5, 96, 112) clip at sigma=20
 with the bench config; the API default (no cfg: step 3, sliding borders)
 on a (4, 64, 72) clip with zero flow and with the clip's own drift flow;
-determinism; flow forms; unsupported configs raise."""
+determinism; flow forms; unsupported configs raise (the filter modes that
+run are held to JAX by tests/test_torch_bayes_modes.py and
+tests/test_torch_presets.py)."""
 
 import numpy as np
 import pytest
@@ -93,9 +95,8 @@ def test_denoise_repeat_is_bitwise(clip, port_run):
 
 @pytest.mark.parametrize("override", [
     dict(dense_rows="full"), dict(topk="stream"), dict(topk="approx"),
-    dict(eig_method="jacobi"), dict(poly_econ=False), dict(deno="ave"),
-    dict(couple_channels=True), dict(poly_impl="pallas"),
-    dict(agg_weight="exp"), dict(poly_gram=False),
+    dict(agg_weight="exp"), dict(poly_gram=False), dict(only_frame=0),
+    dict(agg_bf16=True),
 ])
 def test_unsupported_config_raises(clip, override):
     _, noisy = clip

@@ -1,6 +1,7 @@
 """Host-side spec of the PyTorch port pinned equal to the JAX package:
 configs, the coverage lattice, the synthetic clips, the polyspec constants
-and the colour transform.  Also: the port imports without jax."""
+and sign schedule, the Jacobi rotation schedule and the colour transform.
+Also: the port imports without jax."""
 
 import dataclasses
 import os
@@ -13,12 +14,14 @@ import torch
 
 import vnlb_tpu.config as jcfg
 from vnlb_tpu.ops import color as jcolor
+from vnlb_tpu.ops import eigh as jeigh
 from vnlb_tpu.ops import mask as jmask
 from vnlb_tpu.ops import polyspec as jpoly
 from vnlb_tpu.testing import data as jdata
 
 import vnlb_tpu_torch.config as tcfg
 from vnlb_tpu_torch.ops import color as tcolor
+from vnlb_tpu_torch.ops import eigh as teigh
 from vnlb_tpu_torch.ops import mask as tmask
 from vnlb_tpu_torch.ops import polyspec as tpoly
 from vnlb_tpu_torch.testing import data as tdata
@@ -92,6 +95,20 @@ def test_polyspec_constants_match(deg_f):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("ns_iters", [4, 8, 10, 14, 20])
+def test_sign_schedule_matches(ns_iters):
+    assert tpoly._AGGR == jpoly._AGGR
+    assert tpoly._sign_schedule(ns_iters) == jpoly._sign_schedule(ns_iters)
+    assert tpoly._sign_schedule(ns_iters, 2) == \
+        jpoly._sign_schedule(ns_iters, 2)
+
+
+@pytest.mark.parametrize("n", [2, 50, 60, 100])
+def test_round_robin_schedule_matches(n):
+    np.testing.assert_array_equal(teigh._round_robin_schedule(n),
+                                  jeigh._round_robin_schedule(n))
+
+
 def test_color_matches():
     rng = np.random.default_rng(0)
     v = rng.uniform(0, 255, (3, 3, 17, 19)).astype(np.float32)
@@ -112,7 +129,10 @@ def test_port_imports_without_jax():
             "import vnlb_tpu_torch, vnlb_tpu_torch.ops.search_dense, "
             "vnlb_tpu_torch.ops.econ_filter, vnlb_tpu_torch.testing.data, "
             "vnlb_tpu_torch.ops.patch_gather, vnlb_tpu_torch.ops.search, "
-            "vnlb_tpu_torch.utils.flow_io, vnlb_tpu_torch.utils.metrics; "
+            "vnlb_tpu_torch.utils.flow_io, vnlb_tpu_torch.utils.metrics, "
+            "vnlb_tpu_torch.ops.poly_filter, vnlb_tpu_torch.ops.bayes, "
+            "vnlb_tpu_torch.ops.eigh, vnlb_tpu_torch.ops.linalg, "
+            "vnlb_tpu_torch.ops.spectral; "
             "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'vnlb_tpu.')) for m in sys.modules if sys.modules[m] is not None)")
     env = dict(os.environ, PYTHONPATH=REPO)

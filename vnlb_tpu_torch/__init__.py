@@ -6,11 +6,14 @@ first use with nvcc (``_build.py``); every kernel wrapper dispatches by
 device: a CPU tensor takes the plain PyTorch version, a CUDA tensor
 launches the kernel or raises.
 
-Ported so far: the two-pass ``denoise`` of the JAX API default (preset
-iphone: step 3, sliding borders, needle search in the first pass) and the
-``border_mode="mask"`` bench config, with zero or user-given flow, the
-exact top-K and the econ polynomial filter.  Other configurations raise
-NotImplementedError naming their ROADMAP item.
+Ported so far: the two-pass ``denoise`` of every preset (the API default
+``iphone``: step 3, sliding borders, needle search in the first pass;
+``default``, ``exp``, ``sss``, ``sss_v2``) and the ``border_mode="mask"``
+bench config, with zero or user-given flow, the exact top-K and every
+Bayes-filter mode (``eig_method`` poly / xla / jacobi / rational, the econ
+and two-factor polynomial filters, ``couple_channels``, ``deno="ave"``).
+Other configurations raise NotImplementedError naming their ROADMAP
+item.
 """
 
 from .api import denoise

@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-At first use the sources under ``csrc/`` are compiled with nvcc for
+At first use the sources under ``csrc/`` (``*.cu``; the ``*.cuh`` headers
+they include are not compiled alone) are compiled with nvcc for
 ``sm_90a``, one nvcc per source in parallel, and linked into one shared
 library with a plain C interface, written to
 ``build/vnlb_tpu_torch/`` at the repository root and loaded with ctypes.
-The library's file name carries a hash of the sources, so an edited kernel
-is rebuilt and a stale library is never loaded.  Nothing here runs at
-import time.
+The library's file name carries a hash of the sources and headers, so an
+edited kernel is rebuilt and a stale library is never loaded.  Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -34,15 +35,24 @@ SIGNATURES = {
     "vnlb_patch_dist": ([_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I,
                          _I, _I, _I, _I, _P, _P], _I),
     "vnlb_econ_filter": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                          _F, _F, _F, _F, _F, _I, _P], _I),
-    "vnlb_econ_filter_smem": ([_I, _I], ctypes.c_longlong),
+                          _F, _F, _F, _F, _F, _I, _P, _P], _I),
+    "vnlb_econ_filter_ws": ([_I, _I, _I], ctypes.c_longlong),
+    "vnlb_poly_filter": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                          _F, _F, _F, _F, _F, _F, _I, _P, _P], _I),
+    "vnlb_poly_filter_ws": ([_I, _I, _I], ctypes.c_longlong),
     "vnlb_patch_gather": ([_P, _P, _I, _I, _I, _I, _P, ctypes.c_longlong,
                            _I, _I, _I, _P, _P, _P], _I),
 }
 
 
 def _sources():
+    """The translation units; each is compiled on its own."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def _headers():
+    """Headers the sources include; never compiled alone."""
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -55,7 +65,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

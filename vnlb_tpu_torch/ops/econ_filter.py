@@ -16,9 +16,8 @@ from .polyspec import poly_filter_econ as econ_filter_plain
 
 __all__ = ["econ_filter", "econ_filter_plain", "econ_filter_kernel"]
 
-# the block's shared memory is capped at 227 KB on Hopper (less the
-# kernel's static arrays); table sizes of csrc/econ_filter.cu
-MAX_SMEM = 232448 - 1024
+# table sizes of csrc/econ_filter.cu: the fused-series degree they allow
+# (m*s coefficients, 2*m*s nodes) is far above the presets' (<= 32)
 MAX_NODES = 128
 MAX_COEF = 64
 
@@ -46,25 +45,30 @@ def econ_filter_kernel(xc2: torch.Tensor, xn2: torch.Tensor, cfg
     if xc2.shape != xn2.shape or xc2.dim() != 3:
         raise ValueError(f"shapes {tuple(xc2.shape)} / {tuple(xn2.shape)}")
     g, k, p = xc2.shape
-    lib = _build.library()
-    smem = int(lib.vnlb_econ_filter_smem(k, p))
     xc2, xn2 = xc2.contiguous(), xn2.contiguous()
     ep, xs, proj, v0 = _consts(cfg, k, p, xc2.device)
-    if (smem > MAX_SMEM or ep["nodes"] > MAX_NODES
-            or ep["m"] * ep["s"] > MAX_COEF):
+    if ep["nodes"] > MAX_NODES or ep["m"] * ep["s"] > MAX_COEF:
         raise NotImplementedError(
-            f"the econ filter kernel keeps a group in shared memory: (K={k}, "
-            f"p={p}) needs {smem} B of {MAX_SMEM} B, degree "
-            f"{ep['deg']} needs {ep['nodes']} nodes of {MAX_NODES} and "
-            f"{ep['m'] * ep['s']} coefficients of {MAX_COEF} (ROADMAP.md, "
-            f"item 11: the other filter and aggregation modes)")
+            f"the econ filter kernel holds at most {MAX_NODES} nodes and "
+            f"{MAX_COEF} coefficients; degree {ep['deg']} needs "
+            f"{ep['nodes']} and {ep['m'] * ep['s']}")
     out = torch.empty_like(xn2)
+    if g == 0:
+        return out
+    lib = _build.library()
+    # groups beyond shared memory keep their spilled matrices in a
+    # per-block workspace (csrc/group_mm.cuh)
+    ws_n = int(lib.vnlb_econ_filter_ws(g, k, p))
+    _build.check(max(-ws_n, 0), "econ_filter workspace plan")
+    ws = (torch.empty((ws_n,), dtype=torch.float32, device=xc2.device)
+          if ws_n else None)
     err = lib.vnlb_econ_filter(
         xc2.data_ptr(), xn2.data_ptr(), out.data_ptr(), g, k, p,
         ep["m"], ep["s"], ep["nodes"], xs.data_ptr(), proj.data_ptr(),
         None if v0 is None else v0.data_ptr(),
         float(ep["tau"]), float(1.5 * ep["tau"]), float(ep["sb2"]),
         float(ep["s2"]), float(ep["cwg"]), int(ep["rnd"]),
+        None if ws is None else ws.data_ptr(),
         torch.cuda.current_stream(xc2.device).cuda_stream)
     _build.check(err, "econ_filter kernel")
     econ_filter.launches += 1

@@ -1,18 +1,25 @@
-"""Economized polynomial spectral Wiener filter: numpy constants and the
-plain PyTorch version of ``poly_filter_econ``.
+"""Polynomial spectral Wiener filters: numpy constants and the plain
+PyTorch versions of vnlb_tpu/ops/polyspec.py's three evaluators.
 
-The constant builders are copies of vnlb_tpu/ops/polyspec.py:67-344 and
-must match them exactly (pinned by tests/test_torch_spec.py).  The plain
-filter evaluates, per patch group, the same function as the production
-routes ``_poly_econ_packed`` (K >= p, polyspec.py:612-671) and
-``_poly_econ_gram_packed`` (K < p, :545-609).  Their two-groups-per-tile
-packing is a TPU layout device and is dropped: a group's result is the same
-packed or alone.  Cast points are polyspec's: covariance, Gram and
-``Xn Xc^T`` in f32; every chain product and the final products with
-bf16-rounded operands (``st``) accumulated in f32.
+The functions that make the constant tables (``_dct_matrix`` ...
+``_ps_basis_pinv``), ``_AGGR`` and ``_sign_schedule`` are copies of
+vnlb_tpu/ops/polyspec.py:67-344 and must match them exactly (pinned by
+tests/test_torch_spec.py).
 
-ops/econ_filter.py runs this function as a CUDA kernel on the card; this
-module is its plain twin (CPU tests, on-card comparisons).
+* ``poly_filter_econ`` evaluates, per patch group, the same function as the
+  production routes ``_poly_econ_packed`` (K >= p, polyspec.py:612-671) and
+  ``_poly_econ_gram_packed`` (K < p, :545-609).  Their two-groups-per-tile
+  packing is a TPU layout device and is dropped: a group's result is the
+  same packed or alone.  Cast points: covariance, Gram and ``Xn Xc^T`` in
+  f32; every chain product and the final products with bf16-rounded
+  operands (``st``) accumulated in f32.  ops/econ_filter.py runs it as
+  kernel K2 on the card.
+* ``poly_filter`` (polyspec.py:96-190): the two-factor filter, matrix-sign
+  gate x Chebyshev Wiener factor, with polyspec's cast points (not the
+  Pallas kernel's).  ops/poly_filter.py runs it as kernel K5 on the card.
+* ``poly_filter_fused`` (polyspec.py:193-257): one series through the
+  left-side recurrence (K < p); batched products on every device, as JAX
+  leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -89,6 +96,37 @@ def _ps_basis_pinv(m: int, s: int, nodes: int):
     return np.linalg.pinv(phi).T.astype(np.float32)
 
 
+# aggressive quintic sign step (slope 3.4445 at 0), then cubic polish
+_AGGR = (3.4445, -4.7750, 2.0315)
+
+
+def _sign_schedule(ns_iters: int, n_polish: int = 3):
+    """(n_aggressive, n_polish) matching the cubic-1.5^ns_iters width."""
+    target = 1.5 ** ns_iters / 1.5 ** n_polish
+    n_aggr = max(1, math.ceil(math.log(max(target, 1.001))
+                              / math.log(_AGGR[0])))
+    return n_aggr, n_polish
+
+
+def _storer(rnd: bool):
+    """``st``: bf16 storage rounding of intermediate matrices, or none."""
+    if rnd:
+        return lambda x: x.to(torch.bfloat16).to(torch.float32)
+    return lambda x: x
+
+
+def poly_params(cfg):
+    """Scalars and constant tables of the two-factor filter for one stage."""
+    tau = cfg.thresh * cfg.sigma2 + cfg.sigmab2
+    wdeg = cfg.poly_deg
+    nodes = max(64, 2 * (wdeg + 1))
+    n_aggr, n_polish = _sign_schedule(cfg.ns_iters)
+    return dict(tau=tau, s2=cfg.sigma2, sb2=cfg.sigmab2, wdeg=wdeg,
+                nodes=nodes, xs=_cheb_nodes(nodes),
+                dct=_dct_matrix(wdeg, nodes), n_aggr=n_aggr,
+                n_polish=n_polish, rnd=bool(cfg.poly_bf16))
+
+
 def econ_params(cfg):
     """Scalars and constant tables of the econ filter for one stage."""
     s2, sb2 = cfg.sigma2, cfg.sigmab2
@@ -163,12 +201,7 @@ def poly_filter_econ(xc2: torch.Tensor, xn2: torch.Tensor, cfg
     g, k, p = xc2.shape
     ep = econ_params(cfg)
     m, s = ep["m"], ep["s"]
-    if ep["rnd"]:
-        def st(x):
-            return x.to(torch.bfloat16).to(torch.float32)
-    else:
-        def st(x):
-            return x
+    st = _storer(ep["rnd"])
     inv_k = torch.tensor(1.0 / k, dtype=torch.float32)
     dev = xc2.device
 
@@ -195,3 +228,104 @@ def poly_filter_econ(xc2: torch.Tensor, xn2: torch.Tensor, cfg
     ah = cov * (2.0 / lub)[:, None, None] - eye
     f_mat = _chain(ah, gam, m, s, st)
     return torch.bmm(st(xn2), st(f_mat))
+
+
+def poly_filter(xc2: torch.Tensor, xn2: torch.Tensor, cfg) -> torch.Tensor:
+    """Two-factor spectral filter, (G, K, p) f32 centred patches -> (G, K,
+    p): sign gate W ~ H(C - tau) times the Chebyshev Wiener factor Q,
+    applied on the right (Xn W Q, K >= p) or through the left-side T_j
+    recurrence (K < p)."""
+    g, k, p = xc2.shape
+    pp = poly_params(cfg)
+    tau, s2, sb2, wdeg = pp["tau"], pp["s2"], pp["sb2"], pp["wdeg"]
+    st = _storer(pp["rnd"])
+    dev = xc2.device
+    inv_k = torch.tensor(1.0 / k, dtype=torch.float32, device=dev)
+
+    a_cov = torch.bmm(xc2.transpose(1, 2), xc2) * inv_k
+    eye = torch.eye(p, dtype=torch.float32, device=dev)
+    lub = _lub(a_cov, tau)
+
+    # matrix sign gate: aggressive quintic steps, then cubic polish
+    sc = torch.clamp(lub - tau, min=tau)
+    s_mat = st((a_cov - tau * eye) / sc[:, None, None])
+    a, b_, c_ = _AGGR
+    for _ in range(pp["n_aggr"]):
+        s2m = st(torch.bmm(s_mat, s_mat))
+        s3m = torch.bmm(s2m, s_mat)
+        s5m = torch.bmm(s2m, st(s3m))
+        s_mat = st(a * s_mat + b_ * s3m + c_ * s5m)
+    for _ in range(pp["n_polish"]):
+        s_mat = st(1.5 * s_mat
+                   - 0.5 * torch.bmm(s_mat, st(torch.bmm(s_mat, s_mat))))
+    w_gate = 0.5 * (s_mat + eye)
+
+    # smooth Wiener factor: per-group Chebyshev coefficients
+    xs = torch.as_tensor(pp["xs"], device=dev)
+    dct = torch.as_tensor(pp["dct"], device=dev)
+    lam_i = (xs[None, :] + 1.0) * 0.5 * lub[:, None]
+    lam_c = torch.clamp(lam_i, min=0.9 * tau)
+    wv = (lam_c - sb2) / (lam_c - sb2 + s2)
+    coef = wv @ dct                                           # (G, wdeg+1)
+
+    ah = st(2.0 * a_cov / lub[:, None, None] - eye)
+
+    if k < p:
+        y0 = torch.bmm(xn2, w_gate)
+        z_prev = y0
+        z_cur = torch.bmm(st(y0), ah)
+        acc = coef[:, 0, None, None] * z_prev + coef[:, 1, None, None] * z_cur
+        for j in range(2, wdeg + 1):
+            z_nxt = 2.0 * torch.bmm(st(z_cur), ah) - z_prev
+            acc = acc + coef[:, j, None, None] * z_nxt
+            z_prev, z_cur = z_cur, z_nxt
+        return acc
+
+    t_prev = eye.expand_as(a_cov)
+    t_cur = ah
+    q = coef[:, 0, None, None] * t_prev + coef[:, 1, None, None] * t_cur
+    for j in range(2, wdeg + 1):
+        t_nxt = 2.0 * torch.bmm(ah, st(t_cur)) - t_prev
+        q = q + coef[:, j, None, None] * t_nxt
+        t_prev, t_cur = t_cur, t_nxt
+    f_mat = torch.bmm(st(w_gate), st(q))
+    return torch.bmm(xn2, st(f_mat))
+
+
+def poly_filter_fused(xc2: torch.Tensor, xn2: torch.Tensor, cfg
+                      ) -> torch.Tensor:
+    """Single-series spectral filter for K < p: the smoothed gate x Wiener
+    transfer as one Chebyshev series of degree ``poly_deg_fused``, applied
+    through the left-side T_j recurrence on xn2."""
+    g, k, p = xc2.shape
+    s2, sb2 = cfg.sigma2, cfg.sigmab2
+    tau = cfg.thresh * s2 + sb2
+    deg = cfg.poly_deg_fused
+    nodes = max(64, 2 * (deg + 1))
+    st = _storer(bool(cfg.poly_bf16))
+    dev = xc2.device
+    inv_k = torch.tensor(1.0 / k, dtype=torch.float32, device=dev)
+
+    a_cov = torch.bmm(xc2.transpose(1, 2), xc2) * inv_k
+    eye = torch.eye(p, dtype=torch.float32, device=dev)
+    lub = _lub(a_cov, tau)
+
+    xs = torch.as_tensor(_cheb_nodes(nodes), device=dev)
+    dct = torch.as_tensor(_dct_matrix(deg, nodes), device=dev)
+    lam_i = (xs[None, :] + 1.0) * 0.5 * lub[:, None]
+    wg = 1.2 * (np.pi / deg) * torch.sqrt(tau * lub)
+    gate = torch.sigmoid((lam_i - tau) / (wg[:, None] / 4.4))
+    lam_s = torch.clamp(lam_i - sb2, min=0.0)
+    fv = gate * lam_s / (lam_s + s2)
+    coef = fv @ dct                                           # (G, deg+1)
+
+    ah = st(2.0 * a_cov / lub[:, None, None] - eye)
+
+    z_prev = xn2
+    z_cur = torch.bmm(st(xn2), ah)
+    acc = coef[:, 0, None, None] * z_prev + coef[:, 1, None, None] * z_cur
+    for j in range(2, deg + 1):
+        z_nxt = 2.0 * torch.bmm(st(z_cur), ah) - z_prev
+        acc = acc + coef[:, j, None, None] * z_nxt
+        z_prev, z_cur = z_cur, z_nxt
+    return acc

@@ -4,8 +4,10 @@ the exact top-K, both border modes, zero or user-given flow.
 RGB -> YUV, the coverage lattice of sites in search order (``plan_sites``),
 then for each chunk of sites: search (the dense zero-flow search or the
 per-site gather search, kernel K1 for the distances of both), patch gather
-(kernel K4), flat-area flags (second pass), the econ Bayes filter (kernel
-K2), ``agg_k`` thinning and the scatter into the column-space accumulator.
+(kernel K4), flat-area flags (second pass), the Bayes filter in any of its
+modes (the econ filter is kernel K2, the two-factor filter kernel K5) or
+the raw patches (``deno="ave"``), ``agg_k`` thinning and the scatter into
+the column-space accumulator.
 After the last chunk: fold, normalization with the fallback image, YUV ->
 RGB.  Chunks bound the memory; they are processed in the planned site
 order, so the scatter adds rows in the same order as JAX's one scatter over
@@ -21,11 +23,12 @@ import torch
 
 from .config import StageConfig
 from .ops import agg, color, flat, gather
-from .ops.bayes import bayes_denoise
+from .ops.bayes import ave_denoise, bayes_denoise
 from .ops.econ_filter import econ_filter, econ_filter_plain
 from .ops.mask import interior_split, lattice_sites
 from .ops.patch_dist import patch_dist, patch_dist_plain
 from .ops.patch_gather import patch_gather, patch_gather_plain
+from .ops.poly_filter import poly_filter, poly_filter_plain
 from .ops.search import exec_search, search_levels
 from .ops.search_dense import exec_search_dense
 from .utils.index import check_codec_range
@@ -41,14 +44,16 @@ class Kernels(NamedTuple):
     patch_dist: object
     econ_filter: object
     patch_gather: object
+    poly_filter: object
 
 
 # the device-dispatching wrappers (kernels on CUDA, plain versions on CPU)
 KERNELS = Kernels(patch_dist=patch_dist, econ_filter=econ_filter,
-                  patch_gather=patch_gather)
+                  patch_gather=patch_gather, poly_filter=poly_filter)
 # the plain PyTorch versions on any device (on-card comparison)
 PLAIN = Kernels(patch_dist=patch_dist_plain, econ_filter=econ_filter_plain,
-                patch_gather=patch_gather_plain)
+                patch_gather=patch_gather_plain,
+                poly_filter=poly_filter_plain)
 
 
 def check_supported(cfg: StageConfig) -> None:
@@ -62,25 +67,20 @@ def check_supported(cfg: StageConfig) -> None:
         no("dense_rows='full'", "item 13: kernel K3")
     if cfg.topk != "exact":
         no(f"topk={cfg.topk!r}", "item 9: streaming and approximate top-K")
-    if cfg.poly_impl == "pallas":
-        no("poly_impl='pallas'", "item 12: kernel K5")
-    modes = "item 11: the other filter and aggregation modes"
-    if cfg.deno != "bayes":
-        no(f"deno={cfg.deno!r}", modes)
-    if cfg.eig_method != "poly":
-        no(f"eig_method={cfg.eig_method!r}", modes)
-    if not cfg.poly_econ:
-        no("poly_econ=False", modes)
-    if cfg.couple_channels:
-        no("couple_channels=True", modes)
-    if cfg.npatches < cfg.pdim and not cfg.poly_gram:
-        no("poly_gram=False with K < p", modes)
+    modes = "item 11: the aggregation modes and the econ left regime"
+    p_eff = cfg.pdim * (3 if cfg.couple_channels else 1)   # RGB videos
+    if (cfg.eig_method == "poly" and cfg.poly_impl != "pallas"
+            and cfg.poly_econ and cfg.npatches < p_eff
+            and not cfg.poly_gram):
+        no("poly_gram=False with K < p (the econ left regime)", modes)
     if cfg.agg_weight != "uniform":
         no(f"agg_weight={cfg.agg_weight!r}", modes)
     if cfg.only_frame >= 0:
         no("only_frame", modes)
     if cfg.agg_bf16:
         no("agg_bf16=True", modes)
+    if cfg.deno not in ("bayes", "ave"):
+        raise ValueError(f"unknown deno mode [{cfg.deno}]")
 
 
 def plan_sites(shape, cfg: StageConfig, zero_flow: bool):
@@ -134,7 +134,11 @@ def accumulate(noisy_yuv: torch.Tensor, basic_yuv: torch.Tensor,
             vals, inds = exec_search(srch_yuv, chunk, fflow, bflow, cfg,
                                      levels=levels,
                                      dist_fn=kernels.patch_dist)
-        if cfg.step == 1:
+        if cfg.deno == "ave":
+            (pnoisy,) = kernels.patch_gather([noisy_yuv], inds, cfg.ps,
+                                             cfg.pt, cfg.cols_bf16)
+            pfilt = ave_denoise(pnoisy, cfg)
+        elif cfg.step == 1:
             pnoisy, pbasic = kernels.patch_gather(
                 [noisy_yuv, basic_yuv], inds, cfg.ps, cfg.pt, cfg.cols_bf16)
             flags = (flat.flat_areas(pnoisy, cfg.gamma, cfg.sigma2)
@@ -142,12 +146,14 @@ def accumulate(noisy_yuv: torch.Tensor, basic_yuv: torch.Tensor,
                      torch.zeros((chunk.shape[0],), dtype=torch.bool,
                                  device=dev))
             pfilt, _ = bayes_denoise(pnoisy, pbasic, flags, cfg,
-                                     filter_fn=kernels.econ_filter)
+                                     econ_fn=kernels.econ_filter,
+                                     poly_fn=kernels.poly_filter)
         else:
             (pnoisy,) = kernels.patch_gather([noisy_yuv], inds, cfg.ps,
                                              cfg.pt, cfg.cols_bf16)
             pfilt, _ = bayes_denoise(pnoisy, None, None, cfg,
-                                     filter_fn=kernels.econ_filter)
+                                     econ_fn=kernels.econ_filter,
+                                     poly_fn=kernels.poly_filter)
         # thin the scatter to the best agg_k candidates (vals ascend); the
         # Bayes prior above used all K
         rows = gather.inds_to_rows(inds[:, :ka], shape, cfg.ps, cfg.pt)

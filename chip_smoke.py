@@ -6,15 +6,17 @@
 Builds the kernels from vnlb_tpu_torch/csrc, checks each kernel against its
 plain PyTorch version at the shapes of the main paths, holds small-clip
 PSNRs of every preset and filter mode to the JAX package's, then runs the
-two-pass ``denoise`` on a 5x480x854 clip at sigma=20 five ways and checks
+two-pass ``denoise`` on a 5x480x854 clip at sigma=20 seven ways and checks
 each output: the bench config (preset iphone, eig_method poly, step_s 6,
 border_mode mask, topk exact, zero flow), the API default (``denoise(noisy,
 sigma)`` with no cfg: step_s 3, sliding borders) with zero flow and with
 the clip's own drift flow, the API default with ``poly_impl="pallas"``
 (kernel K5 in both passes) and the ``default`` preset (w_s=27, pt=2 in
-the first pass: K2 on groups beyond shared memory).  Every phase prints
-one line; any failure raises and the script exits nonzero.  The
-second-to-last line is the kernel table as JSON (each kernel's time, its
+the first pass: K2 on groups beyond shared memory), the API default with
+the all-rows dense search (``dense_rows="full"``: kernel K3) and the exact
+and the streaming top-K; then ``denoise_streaming`` of a 24x480x854 clip
+against the whole-clip ``denoise``.  Every phase prints one line; any
+failure raises and the script exits nonzero.  The second-to-last line is the kernel table as JSON (each kernel's time, its
 plain version's and its bound: the larger of its bytes over the memory
 rate and its operations over the peak rate of their type), the last line
 the device record.  Without a CUDA card, or without the repository beside
@@ -60,7 +62,16 @@ REF_SMALL_MODES = {
     "couple_channels": (dict(couple_channels=True),
                         dict(basic=29.922595, deno=30.464622)),
     "deno_ave": (dict(deno="ave"), dict(basic=22.119456, deno=22.119456)),
+    "dense_full": (dict(dense_rows="full"),
+                   dict(basic=29.962152, deno=30.117215)),
+    "topk_stream": (dict(topk="stream"), dict(basic=29.962152, deno=30.117215)),
+    "topk_approx": (dict(topk="approx"), dict(basic=29.962152, deno=30.117215)),
 }
+# the all-rows search and the streaming run (24 frames: windows of 12 / 14
+# frames are strict sub-windows)
+DENSE_FULL = dict(dense_rows="full")
+STREAM_T, STREAM_CHUNK = 24, 4
+STREAM_CFG = dict(nwt_f=2, nwt_b=2, dense_rows="full", topk="stream")
 # H100 SXM data-sheet peaks: f32 on CUDA cores, bf16 on tensor cores (a
 # product of bf16-rounded operands accumulated in f32 is exactly what a
 # bf16 tensor-core MMA computes), HBM3
@@ -159,11 +170,35 @@ def poly_work(g, k, p, scfg):
     return 2 * g * f32, 2 * g * low, 3 * g * k * p * 4
 
 
+def k3_work(vid, n_f, scfg):
+    """bound() of K3 on one plane: per output value 2*pt*C f32 operations
+    for the channel products, 2*(ps-1) for the separable box and 3 for
+    q2 + b2 - 2 cross; the level video read once, the plane written
+    once."""
+    _, c, h, w = vid.shape
+    n_out = n_f * (h - scfg.ps + 1) * (w - scfg.ps + 1) * scfg.w_s ** 2
+    ops = 2 * scfg.pt * c + 2 * (scfg.ps - 1) + 3
+    return bound(n_out * ops, 0, vid.numel() * 4 + n_out * 4)
+
+
+def k3_launches(yuv, cfg):
+    """K3 launches of one ``denoise`` under dense_rows="full": one per
+    (pyramid level, dt) of each pass."""
+    from vnlb_tpu_torch.ops.search import eff_dt_range, search_levels
+
+    n = 0
+    for i in (0, 1):
+        lo, hi = eff_dt_range(cfg.stage(i), yuv.shape[0])
+        n += len(search_levels(yuv, cfg.stage(i))) * (hi - lo + 1)
+    return n
+
+
 def e2e(vt, name, noisy, clean, dev, counters, expect, cfg=None,
         flows=None):
     """The main path at full size: one counted warmup run, best of 3 with a
     bitwise repeat check, the output checks and the plain-version pass.
-    ``expect`` names the counters that must launch (the others must not)."""
+    ``expect`` names the counters that must launch (the others must not).
+    Returns (launches, deno, basic)."""
     from vnlb_tpu_torch.utils.metrics import compute_psnr
 
     for c in counters:
@@ -214,7 +249,7 @@ def e2e(vt, name, noisy, clean, dev, counters, expect, cfg=None,
     if not (abs(pp_basic - p_basic) < 0.02 and abs(pp_deno - p_deno) < 0.02):
         raise AssertionError(f"{name}: kernel path and plain path differ by "
                              f">= 0.02 dB")
-    return launches
+    return launches, deno, basic
 
 
 def main():
@@ -224,6 +259,8 @@ def main():
     import vnlb_tpu_torch as vt
     from vnlb_tpu_torch import _build
     from vnlb_tpu_torch.ops import color
+    from vnlb_tpu_torch.ops.dense_dist import (_box_ps, dense_dist,
+                                               dense_dist_plain)
     from vnlb_tpu_torch.ops.econ_filter import econ_filter, econ_filter_plain
     from vnlb_tpu_torch.ops.mask import interior_split, lattice_sites
     from vnlb_tpu_torch.ops.patch_dist import patch_dist, patch_dist_plain
@@ -312,6 +349,60 @@ def main():
     log("k1_time", shape=f"s1.l0 sites={sites.shape[0]} dt_planes=7",
         kernel_ms=f"{k1_ms:.3f}", plain_ms=f"{k1_plain_ms:.3f}",
         bound_ms=f"{k1_bound[0]:.4f}", bound_by=k1_bound[1])
+
+    # ---- 3b. K3 vs plain at the all-rows search's 480p shapes, dt=0
+    # (every frame valid): stage 0 levels 0/1/2 (F=5, pt*C=1), stage 1
+    # level 0 (F=4, pt*C=6); |d| <= 1e-5 (q2 + b2) + 1e-3 elementwise ----
+    k3_err, k3_times = 0.0, {}
+    for name, scfg, lvl in (("s0.l0", a0, 0), ("s0.l1", a0, 1),
+                            ("s0.l2", a0, 2), ("s1.l0", a1, 0)):
+        v_l = search_levels(yuv, scfg)[lvl]
+        ps, w_s, half = scfg.ps, scfg.w_s, (scfg.w_s - 1) // 2
+        args = (v_l, 0, scfg.pt, ps, w_s)
+        got = dense_dist(*args)
+        want = dense_dist_plain(*args)
+        torch.cuda.synchronize()
+        v2 = (v_l * v_l).sum(1)
+        v2p = sum(v2[p:p + T - scfg.pt + 1] for p in range(scfg.pt))
+        q2 = _box_ps(v2p, ps)
+        hp, wp = q2.shape[1:]
+        b2 = torch.nn.functional.pad(q2, (half,) * 4)
+        worst = 0.0
+        for a in range(w_s):
+            scale = q2[..., None] + torch.stack(
+                [b2[:, a:a + hp, b:b + wp] for b in range(w_s)], dim=-1)
+            err = (got[..., a * w_s:(a + 1) * w_s]
+                   - want[..., a * w_s:(a + 1) * w_s]).abs()
+            worst = max(worst, ((err - 1e-3) / scale).max().item())
+            k3_err = max(k3_err, err.max().item())
+        if not worst <= 1e-5:
+            raise AssertionError(f"K3 {name}: error {worst} (q2 + b2)")
+        kms = cuda_ms(lambda: dense_dist(*args), 5)
+        pms = cuda_ms(lambda: dense_dist_plain(*args), 1)
+        k3_times[name] = (kms, pms, k3_work(v_l, got.shape[0], scfg))
+        extra = {}
+        if name == "s0.l0":
+            # the site take of the API default's interior sites, and what
+            # an f32 running sum (JAX's cumsum box) loses at this size
+            sites = torch.from_numpy(interior_split(
+                lattice_sites(shape, scfg), shape, scfg)[0]).to(dev).long()
+            rows = (sites[:, 0] * hp + sites[:, 1]) * wp + sites[:, 2]
+            take_ms = cuda_ms(
+                lambda: got.view(-1, w_s * w_s).index_select(0, rows), 10)
+            c32 = torch.cumsum(v2p, -1)
+            c32 = torch.cat([c32[..., ps - 1:ps], c32[..., ps:]
+                             - c32[..., :-ps]], -1)
+            c32 = torch.cumsum(c32, -2)
+            c32 = torch.cat([c32[..., ps - 1:ps, :], c32[..., ps:, :]
+                             - c32[..., :-ps, :]], -2)
+            extra = dict(take_sites=rows.shape[0], take_ms=f"{take_ms:.4f}",
+                         f32_cumsum_rel_loss=f"{((c32 - q2).abs() / q2).max().item():.3g}")
+        bms, by = k3_times[name][2]
+        log("k3", shape=name, out=tuple(got.shape),
+            out_gb=f"{got.numel() * 4 / 1e9:.3f}", err_over_q2b2=f"{worst:.3g}",
+            kernel_ms=f"{kms:.3f}", plain_ms=f"{pms:.3f}",
+            bound_ms=f"{bms:.4f}", bound_by=by, **extra)
+        del got, want, scale, err
 
     # ---- 4. K1's window-start entry vs plain: the gather search of the
     # API default at 480p (every border site of both stages, and 4096
@@ -475,28 +566,79 @@ def main():
 
     # ---- 8. end to end at 5x480x854: each main path with the launch
     # counts set to 0 just before it and read just after ----
-    counters = (patch_dist, econ_filter, patch_gather, poly_filter)
+    counters = (patch_dist, econ_filter, patch_gather, poly_filter,
+                dense_dist)
     k124 = {"patch_dist", "econ_filter", "patch_gather"}
     k145 = {"patch_dist", "patch_gather", "poly_filter"}
-    launches = {
-        "e2e": e2e(vt, "e2e", noisy, clean, dev, counters, k124, cfg=cfg),
-        "e2e_api_zero": e2e(vt, "e2e_api_zero", noisy, clean, dev,
-                            counters, k124),
-        "e2e_api_drift": e2e(vt, "e2e_api_drift", noisy, clean, dev,
-                             counters, k124, flows=drift),
-        "e2e_poly_pallas": e2e(
-            vt, "e2e_poly_pallas", noisy, clean, dev, counters, k145,
-            cfg=vt.default_config(SIGMA, poly_impl="pallas")),
-        "e2e_preset_default": e2e(
-            vt, "e2e_preset_default", noisy, clean, dev, counters, k124,
-            cfg=vt.default_config(SIGMA, preset="default")),
-    }
+    runs = (("e2e", k124, cfg, None), ("e2e_api_zero", k124, None, None),
+            ("e2e_api_drift", k124, None, drift),
+            ("e2e_poly_pallas", k145,
+             vt.default_config(SIGMA, poly_impl="pallas"), None),
+            ("e2e_preset_default", k124,
+             vt.default_config(SIGMA, preset="default"), None))
+    launches = {name: e2e(vt, name, noisy, clean, dev, counters, want,
+                          cfg=rcfg, flows=fl)[0]
+                for name, want, rcfg, fl in runs}
     main_path = launches["e2e_api_zero"]
+
+    # ---- 8b. the all-rows search: K3 for the interior sites (K1 for the
+    # border sites), exact and streaming top-K ----
+    full_cfg = vt.default_config(SIGMA, **DENSE_FULL)
+    k1234 = k124 | {"dense_dist"}
+    launches["e2e_dense_full"], d_full, b_full = e2e(
+        vt, "e2e_dense_full", noisy, clean, dev, counters, k1234,
+        cfg=full_cfg)
+    want_k3 = k3_launches(yuv, full_cfg)
+    if launches["e2e_dense_full"]["dense_dist"] != want_k3:
+        raise AssertionError(f"e2e_dense_full: {launches['e2e_dense_full']}"
+                             f" K3 launches, predicted {want_k3}")
+    launches["e2e_dense_full_stream"], d_str, b_str = e2e(
+        vt, "e2e_dense_full_stream", noisy, clean, dev, counters, k1234,
+        cfg=vt.default_config(SIGMA, topk="stream", **DENSE_FULL))
+    if not (torch.equal(d_str, d_full) and torch.equal(b_str, b_full)):
+        raise AssertionError("e2e_dense_full_stream: not bitwise equal to "
+                             "the exact top-K")
+    log("dense_full_checks", k3_launches=want_k3, predicted=want_k3,
+        stream_bitwise_equal_exact=True)
+    del d_full, b_full, d_str, b_str
+
+    # ---- 8c. denoise_streaming against the whole-clip denoise ----
+    s_clean = synthetic_video(STREAM_T, H, W, seed=0)
+    s_noisy = add_noise(s_clean, SIGMA, seed=1)
+    s_cfg = vt.default_config(SIGMA, **STREAM_CFG)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dm, bm, mono_s = vt.denoise(s_noisy, SIGMA, cfg=s_cfg, device=dev)
+    mono_peak = torch.cuda.max_memory_allocated(dev)
+    dm, bm = dm.cpu().numpy(), bm.cpu().numpy()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dense_dist.launches = 0
+    ds, bs, str_s = vt.denoise_streaming(s_noisy, SIGMA, chunk=STREAM_CHUNK,
+                                         cfg=s_cfg, device=dev)
+    str_peak = torch.cuda.max_memory_allocated(dev)
+    mad_b, mad_d = np.abs(bs - bm).mean(), np.abs(ds - dm).mean()
+    dpsnr = abs(compute_psnr(ds, s_clean) - compute_psnr(dm, s_clean))
+    log("streaming", frames=STREAM_T, chunk=STREAM_CHUNK,
+        seconds=f"{str_s:.3f}", fps=f"{STREAM_T / str_s:.3f}",
+        whole_seconds=f"{mono_s:.3f}",
+        psnr_noisy=f"{compute_psnr(s_noisy, s_clean):.4f}",
+        psnr_deno=f"{compute_psnr(ds, s_clean):.4f}",
+        whole_psnr_deno=f"{compute_psnr(dm, s_clean):.4f}",
+        mean_abs_diff_basic=f"{mad_b:.3g}", mean_abs_diff_deno=f"{mad_d:.3g}",
+        peak_mem_gib=f"{str_peak / 2 ** 30:.3f}",
+        whole_peak_mem_gib=f"{mono_peak / 2 ** 30:.3f}",
+        k3_launches=dense_dist.launches)
+    if not (mad_b < 1e-3 and mad_d < 1e-3 and dpsnr < 0.01
+            and str_peak < mono_peak and dense_dist.launches > 0):
+        raise AssertionError("streaming: differs from the whole-clip run or "
+                             "needs more memory")
 
     # ---- 9. records ----
     kms, pms, (k2_bms, k2_by) = k2_times["gram(s1)", 3 * 4096]
     g_kms, g_pms, (k4_bms, k4_by) = k4_times["s1"]
     p_kms, p_pms, (k5_bms, k5_by) = k5_times["left(s1)", 3 * 4096]
+    k3_kms, k3_pms, (k3_bms, k3_by) = k3_times["s0.l0"]
     print(json.dumps({"kernels": [
         {"name": "patch_dist", "route": "cuda",
          "source": "vnlb_tpu_torch/csrc/patch_dist.cu",
@@ -522,6 +664,12 @@ def main():
          "launches": launches["e2e_poly_pallas"]["poly_filter"],
          "max_abs_err": k5_err, "ms": p_kms, "plain_ms": p_pms,
          "bound_ms": k5_bms, "bound_by": k5_by, "library_ms": None},
+        {"name": "dense_dist", "route": "cuda",
+         "source": "vnlb_tpu_torch/csrc/dense_dist.cu",
+         "replaces": "vnlb_tpu/ops/pallas_dense.py:141",
+         "launches": launches["e2e_dense_full"]["dense_dist"],
+         "max_abs_err": k3_err, "ms": k3_kms, "plain_ms": k3_pms,
+         "bound_ms": k3_bms, "bound_by": k3_by, "library_ms": None},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,12 +13,15 @@ import pytest
 import torch
 
 import vnlb_tpu_torch as vt
+from vnlb_tpu_torch.ops.dense_dist import (dense_dist, dense_dist_plain,
+                                           frame_range)
 from vnlb_tpu_torch.ops.econ_filter import econ_filter, econ_filter_plain
 from vnlb_tpu_torch.ops.mask import lattice_sites
 from vnlb_tpu_torch.ops.patch_dist import patch_dist, patch_dist_plain
 from vnlb_tpu_torch.ops.patch_gather import patch_gather, patch_gather_plain
 from vnlb_tpu_torch.ops.poly_filter import poly_filter, poly_filter_plain
-from vnlb_tpu_torch.ops.search import _window_starts, track_centers
+from vnlb_tpu_torch.ops.search import (_window_starts, eff_dt_range,
+                                       search_levels, track_centers)
 from vnlb_tpu_torch.testing.data import add_noise, drift_flows, synthetic_video
 from vnlb_tpu_torch.utils.metrics import compute_psnr
 
@@ -260,3 +263,70 @@ def test_filter_paths_launch_kernels(card, name):
     assert torch.equal(deno, again)
     assert compute_psnr(deno.cpu().numpy(), clean) > \
         compute_psnr(noisy, clean) + 6.0
+
+
+def _box(x, ps):
+    """ps x ps box sums of (N, H, W), f64."""
+    return torch.nn.functional.avg_pool2d(x[:, None].double(), ps,
+                                          stride=1)[:, 0] * ps * ps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pt,c_d,w_s,ps,dt", [
+    (1, 1, 15, 7, 0), (1, 1, 15, 7, -2), (2, 3, 15, 7, 1), (2, 3, 27, 7, 0),
+    (1, 3, 9, 5, 2)])
+def test_dense_dist_kernel_matches_plain(card, pt, c_d, w_s, ps, dt):
+    """K3 against its plain version: |d| <= 1e-5 (q2 + b2) + 1e-3."""
+    rng = np.random.default_rng(7)
+    vid = torch.from_numpy(rng.uniform(0, 255, (5, c_d, 61, 67))
+                           .astype(np.float32)).to(card)
+    before = dense_dist.launches
+    got = dense_dist(vid, dt, pt, ps, w_s)
+    want = dense_dist_plain(vid, dt, pt, ps, w_s)
+    torch.cuda.synchronize()
+    assert dense_dist.launches == before + 1
+    f_lo, f_hi = frame_range(5, pt, dt)
+    half = (w_s - 1) // 2
+    v2 = (vid.double() ** 2).sum(1)
+    box = _box(sum(v2[p:p + 6 - pt] for p in range(pt)), ps)
+    hp, wp = box.shape[1:]
+    b2 = torch.nn.functional.pad(box[f_lo + dt:f_hi + dt], (half,) * 4)
+    scale = torch.stack([box[f_lo:f_hi] + b2[:, a:a + hp, b:b + wp]
+                         for a in range(w_s) for b in range(w_s)], -1)
+    assert got.shape == want.shape == scale.shape
+    assert ((got - want).abs() <= 1e-5 * scale + 1e-3).all()
+
+
+@pytest.mark.cuda
+def test_dense_full_path_launches_kernels(card):
+    """dense_rows="full" launches K3 once per (level, dt) of each pass;
+    topk="stream" gives the same bits."""
+    clean = synthetic_video(5, 96, 112, seed=0)
+    noisy = add_noise(clean, 20.0, seed=1)
+    cfg = vt.default_config(20.0, dense_rows="full")
+    yuv = torch.from_numpy(noisy).to(card)
+    want = 0
+    for i in (0, 1):
+        lo, hi = eff_dt_range(cfg.stage(i), 5)
+        want += len(search_levels(yuv, cfg.stage(i))) * (hi - lo + 1)
+    dense_dist.launches = 0
+    deno, basic, _ = vt.denoise(noisy, 20.0, cfg=cfg, device=card)
+    assert dense_dist.launches == want
+    again, b2, _ = vt.denoise(
+        noisy, 20.0, device=card,
+        cfg=vt.default_config(20.0, dense_rows="full", topk="stream"))
+    assert torch.equal(deno, again) and torch.equal(basic, b2)
+    assert compute_psnr(deno.cpu().numpy(), clean) > \
+        compute_psnr(noisy, clean) + 6.0
+
+
+@pytest.mark.cuda
+def test_streaming_on_card(card):
+    clean = synthetic_video(13, 48, 48, seed=7)
+    noisy = add_noise(clean, 20.0, seed=8)
+    cfg = vt.default_config(20.0, nwt_f=[1, 1], nwt_b=[1, 1])
+    d_s, b_s, _ = vt.denoise_streaming(noisy, 20.0, chunk=3, cfg=cfg,
+                                       device=card)
+    d_m, b_m, _ = vt.denoise(noisy, 20.0, cfg=cfg, device=card)
+    assert np.abs(d_s - d_m.cpu().numpy()).mean() < 1e-3
+    assert np.abs(b_s - b_m.cpu().numpy()).mean() < 1e-3

@@ -2,9 +2,10 @@
 each pass and the two-pass ``denoise`` on a (5, 96, 112) clip at sigma=20
 with the bench config; the API default (no cfg: step 3, sliding borders)
 on a (4, 64, 72) clip with zero flow and with the clip's own drift flow;
-determinism; flow forms; unsupported configs raise (the filter modes that
-run are held to JAX by tests/test_torch_bayes_modes.py and
-tests/test_torch_presets.py)."""
+the search overrides ``dense_rows="full"`` and ``topk`` stream / approx
+on that clip; determinism; flow forms; unsupported configs raise (the
+filter modes that run are held to JAX by tests/test_torch_bayes_modes.py
+and tests/test_torch_presets.py)."""
 
 import numpy as np
 import pytest
@@ -94,7 +95,6 @@ def test_denoise_repeat_is_bitwise(clip, port_run):
 
 
 @pytest.mark.parametrize("override", [
-    dict(dense_rows="full"), dict(topk="stream"), dict(topk="approx"),
     dict(agg_weight="exp"), dict(poly_gram=False), dict(only_frame=0),
     dict(agg_bf16=True),
 ])
@@ -104,6 +104,13 @@ def test_unsupported_config_raises(clip, override):
     cfg = vt.default_config(20.0, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         vt.denoise(noisy[:, :, :32, :32], 20.0, cfg=cfg, device="cpu")
+
+
+def test_streaming_mesh_raises(clip):
+    _, noisy = clip
+    with pytest.raises(NotImplementedError, match="item 15"):
+        vt.denoise_streaming(noisy, 20.0, chunk=3, mesh=object(),
+                             device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -134,6 +141,30 @@ def test_api_default_matches_jax(small_clip, api_runs, flow):
     _close(basic, jbasic, clean)
     _close(deno, jdeno, clean)
     assert compute_psnr(deno, clean) >= compute_psnr(noisy, clean) + 6.0
+
+
+@pytest.mark.parametrize("override", [
+    dict(dense_rows="full"), dict(topk="stream"), dict(topk="approx")])
+def test_search_override_matches_jax(small_clip, api_runs, override):
+    """The all-rows search (K3) and the stream / approx top-K run on the
+    CPU.  The top-K modes give the exact top-K's bits, as in JAX (its
+    stream mode is pinned bitwise to exact by tests/test_search_dense.py,
+    and approx_max_k is exact off the TPU), so they are held to the exact
+    runs of both packages; the all-rows search to JAX's own all-rows run."""
+    clean, noisy, _ = small_clip
+    deno, basic, _ = vt.denoise(noisy, 20.0, device="cpu",
+                                cfg=vt.default_config(20.0, **override))
+    basic, deno = basic.numpy(), deno.numpy()
+    (pbasic, pdeno), want = api_runs["zero"]
+    if "topk" in override:
+        np.testing.assert_array_equal(basic, pbasic)
+        np.testing.assert_array_equal(deno, pdeno)
+    else:
+        jdeno, jbasic, _ = vnlb_tpu.denoise(
+            noisy, 20.0, cfg=vnlb_tpu.default_config(20.0, **override))
+        want = (np.asarray(jbasic), np.asarray(jdeno))
+    _close(basic, want[0], clean)
+    _close(deno, want[1], clean)
 
 
 def test_flow_pair_expands(small_clip, api_runs):

@@ -132,7 +132,9 @@ def test_port_imports_without_jax():
             "vnlb_tpu_torch.utils.flow_io, vnlb_tpu_torch.utils.metrics, "
             "vnlb_tpu_torch.ops.poly_filter, vnlb_tpu_torch.ops.bayes, "
             "vnlb_tpu_torch.ops.eigh, vnlb_tpu_torch.ops.linalg, "
-            "vnlb_tpu_torch.ops.spectral; "
+            "vnlb_tpu_torch.ops.spectral, vnlb_tpu_torch.ops.dense_dist, "
+            "vnlb_tpu_torch.api; "
+            "assert callable(vnlb_tpu_torch.denoise_streaming); "
             "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'vnlb_tpu.')) for m in sys.modules if sys.modules[m] is not None)")
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -9,20 +9,21 @@ launches the kernel or raises.
 Ported so far: the two-pass ``denoise`` of every preset (the API default
 ``iphone``: step 3, sliding borders, needle search in the first pass;
 ``default``, ``exp``, ``sss``, ``sss_v2``) and the ``border_mode="mask"``
-bench config, with zero or user-given flow, the exact top-K and every
-Bayes-filter mode (``eig_method`` poly / xla / jacobi / rational, the econ
-and two-factor polynomial filters, ``couple_channels``, ``deno="ave"``).
-Other configurations raise NotImplementedError naming their ROADMAP
-item.
+bench config, with zero or user-given flow, both dense row modes (the
+lattice-row search on K1, ``dense_rows="full"`` on K3), every top-K mode
+and every Bayes-filter mode (``eig_method`` poly / xla / jacobi /
+rational, the econ and two-factor polynomial filters, ``couple_channels``,
+``deno="ave"``), and ``denoise_streaming`` on one card.  Other
+configurations raise NotImplementedError naming their ROADMAP item.
 """
 
-from .api import denoise
+from .api import denoise, denoise_streaming
 from .config import StageConfig, VnlbConfig, config_from_jax, default_config
 from .pipeline import KERNELS, PLAIN, Kernels, proc_nl
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "denoise", "proc_nl", "StageConfig", "VnlbConfig", "default_config",
+    "denoise", "denoise_streaming", "proc_nl", "StageConfig", "VnlbConfig", "default_config",
     "config_from_jax", "Kernels", "KERNELS", "PLAIN",
 ]

@@ -42,6 +42,8 @@ SIGNATURES = {
     "vnlb_poly_filter_ws": ([_I, _I, _I], ctypes.c_longlong),
     "vnlb_patch_gather": ([_P, _P, _I, _I, _I, _I, _P, ctypes.c_longlong,
                            _I, _I, _I, _P, _P, _P], _I),
+    "vnlb_dense_dist": ([_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+                        _I),
 }
 
 

@@ -1,4 +1,4 @@
-"""Public API: ``denoise`` (vnlb_tpu/api.py:28-83)."""
+"""Public API: ``denoise`` and ``denoise_streaming`` (vnlb_tpu/api.py:28-167)."""
 
 from __future__ import annotations
 
@@ -86,4 +86,65 @@ def denoise(noisy, sigma: float, flows=None, clean=None,
                    zero_flow=zf, kernels=kernels)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    return deno, basic, time.perf_counter() - t0
+
+
+def denoise_streaming(noisy, sigma: float, chunk: int = 12, flows=None,
+                      preset: str = "iphone",
+                      cfg: Optional[VnlbConfig] = None, mesh=None,
+                      device="cuda") -> Tuple[np.ndarray, np.ndarray, float]:
+    """Two-pass denoising of a long clip in bounded device memory
+    (vnlb_tpu/api.py:86-167, the single-device branch).
+
+    Each pass streams over temporal chunks of ``chunk`` output frames, each
+    run in a fixed window of ``chunk + 2*ctx`` frames, ``ctx = 2*max(nwt)
+    + pt - 1``: an output frame takes deposits from sites up to nwt + pt -
+    1 frames away, whose windows reach as far again, so every contributing
+    site sees what it sees in the whole-clip run.  Pass 1 is assembled on
+    the host before pass 2 streams over it; each window's lattice is
+    anchored to global frame indices (``proc_nl(..., t_origin)``).  The
+    device holds one window at a time; outputs match ``denoise`` up to the
+    summation order of the scatter.
+
+    ``mesh`` (spatial sharding across cards) is not ported.  Returns
+    (deno, basic, seconds) as host numpy arrays.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "vnlb_tpu_torch does not run denoise_streaming(mesh=...) yet "
+            "(ROADMAP.md, item 15: the K1 tile entry with parallel/)")
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    noisy = np.asarray(noisy.cpu() if isinstance(noisy, torch.Tensor)
+                       else noisy, np.float32)
+    t_len = noisy.shape[0]
+    cfg = cfg or default_config(sigma, preset=preset)
+    fflow, bflow, zflow = _prep_flows(noisy.shape, flows)
+    fflow, bflow = fflow.numpy(), bflow.numpy()
+
+    def stream_pass(scfg, basic_full):
+        ctx = 2 * max(scfg.nwt_b, scfg.nwt_f) + scfg.pt - 1
+        out = np.empty_like(noisy)
+        win = min(t_len, chunk + 2 * ctx)
+        for start in range(0, t_len, chunk):
+            stop = min(start + chunk, t_len)
+            # a fixed window that covers [start, stop); extra context only
+            # widens the exact-match region
+            lo = max(0, min(start - ctx, t_len - win))
+            hi = lo + win
+            nz = torch.from_numpy(noisy[lo:hi]).to(device)
+            bs = (None if basic_full is None
+                  else torch.from_numpy(basic_full[lo:hi]).to(device))
+            ff, bf = ((None, None) if zflow else
+                      (torch.from_numpy(fflow[lo:hi]).to(device),
+                       torch.from_numpy(bflow[lo:hi]).to(device)))
+            o = proc_nl(nz, bs, None, ff, bf, scfg, zero_flow=zflow,
+                        t_origin=lo)
+            out[start:stop] = o[start - lo:stop - lo].cpu().numpy()
+        return out
+
+    basic = stream_pass(cfg.stage(0), None)
+    deno = stream_pass(cfg.stage(1), basic)
     return deno, basic, time.perf_counter() - t0

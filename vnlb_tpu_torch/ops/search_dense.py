@@ -1,9 +1,19 @@
-"""Zero-flow top-K search with out-of-bounds masking (the main path of
-vnlb_tpu/ops/search_dense.py:501-739, ``border_mode="mask"``, exact top-K).
+"""Zero-flow top-K search with out-of-bounds masking
+(vnlb_tpu/ops/search_dense.py:501-739): both row modes and every top-K
+mode.
 
-Per pyramid level and temporal offset dt, kernel K1 (ops/patch_dist.py)
-gives every site its w_s x w_s raw candidate distances directly; the TPU's
-phase-major selection layout is not needed.  The semantics kept exactly:
+Each pyramid level's candidate distances come from one of two kernels:
+
+* ``dense_rows="auto"`` (the default, JAX's lattice-row path): kernel K1
+  (ops/patch_dist.py) gives every site its w_s x w_s raw distances
+  directly; the TPU's phase-major selection layout is not needed;
+* ``dense_rows="full"`` (JAX's all-rows path, ``qrow0=None``): kernel K3
+  (ops/dense_dist.py) computes the distances of every pixel for one
+  (level, dt) at a time, and each site takes its row of that plane.  The
+  planes are shared by every site of the call, so a pass searches all its
+  dense sites in one call (pipeline.accumulate).
+
+The semantics kept exactly:
 
 * needle pyramid: 2x average pooling, stopping before a level smaller than
   w_s+ps-1 (search_dense.py:527-534);
@@ -14,21 +24,30 @@ phase-major selection layout is not needed.  The semantics kept exactly:
   which is what XLA emits for that division), and the levels add in order
   0+1+2;
 * then ``- offset``, ``+inf`` for an invalid dt (t+dt outside [0, T-pt])
-  and ``+inf`` for out-of-bounds candidates;
-* exact top-K in enumeration order (dt, dy, dx) with ties listed earliest
-  position first, as ``lax.top_k`` does: a stable ascending sort;
+  and, under ``border_mode="mask"``, ``+inf`` for out-of-bounds
+  candidates;
+* top-K in enumeration order (dt, dy, dx) with ties listed earliest
+  position first, as ``lax.top_k`` does: a stable ascending sort.
+  ``topk="stream"`` (when w_s^2 >= K) merges a running (S, K) top-K with
+  each dt plane, running entries first, which gives the same bits as the
+  one-shot sort with an O(S*(K+w_s^2)) buffer.  ``topk="approx"`` is the
+  exact top-K: ``lax.approx_max_k`` is exact on every backend but the TPU;
 * indices decode with the frame clipped, -1 where the value is inf.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Iterator, List, Optional, Tuple
 
 import torch
 
 from ..config import StageConfig
+from .dense_dist import dense_dist, frame_range
 from .patch_dist import patch_dist
 from .search import _apply_tau, eff_dt_range, inv_norm, search_levels
+
+# sites per sort of the exact top-K (bounds the sort's scratch)
+SORT_CHUNK = 4096
 
 
 def level_queries(sites: torch.Tensor, lvl: int, h_l: int, w_l: int,
@@ -44,17 +63,99 @@ def level_queries(sites: torch.Tensor, lvl: int, h_l: int, w_l: int,
     return t, y, x
 
 
+def _round(raw: torch.Tensor, cfg: StageConfig, inv: float) -> torch.Tensor:
+    """One level's normalized term: bf16 rounding, then times 1/norm."""
+    if cfg.search_bf16:
+        raw = raw.to(torch.bfloat16).to(torch.float32)
+    return raw * inv
+
+
+def _site_planes(levels, sites, cfg, dt_lo, n_dt, dist_fn) -> torch.Tensor:
+    """(n_dt, S, ws2) level sums from K1's per-site distances."""
+    inv = inv_norm(cfg)
+    cand = None                                        # (n_dt, S, ws2)
+    for lvl, v_l in enumerate(levels):
+        qt, qy, qx = level_queries(sites, lvl, v_l.shape[2], v_l.shape[3],
+                                   cfg)
+        part = _round(dist_fn(v_l, qt, qy, qx, dt_lo, n_dt, cfg.pt, cfg.ps,
+                              cfg.w_s), cfg, inv)
+        cand = part if cand is None else cand + part
+    return cand
+
+
+def _full_planes(levels, sites, cfg, dt_lo, n_dt, dense_fn
+                 ) -> Iterator[torch.Tensor]:
+    """Per-dt (S, ws2) level sums taken from K3's all-pixel planes, one
+    (level, dt) plane alive at a time.  Sites whose frame has no candidate
+    frame at this dt read a valid row; the caller masks them +inf."""
+    inv = inv_norm(cfg)
+    t_len = levels[0].shape[0]
+    queries = [level_queries(sites, lvl, v.shape[2], v.shape[3], cfg)
+               for lvl, v in enumerate(levels)]
+    for dt in range(dt_lo, dt_lo + n_dt):
+        f_lo, f_hi = frame_range(t_len, cfg.pt, dt)
+        cand = None
+        for v_l, (qt, qy, qx) in zip(levels, queries):
+            plane = dense_fn(v_l, dt, cfg.pt, cfg.ps, cfg.w_s)
+            _, hp, wp, ws2 = plane.shape
+            rows = ((qt.clamp(f_lo, f_hi - 1) - f_lo) * hp + qy) * wp + qx
+            got = plane.view(-1, ws2).index_select(0, rows)
+            del plane
+            part = _round(got, cfg, inv)
+            cand = part if cand is None else cand + part
+        yield cand
+
+
+def _sorted_topk(flat: torch.Tensor, k: int):
+    """Exact top-K of each row, ascending, ties earliest position first."""
+    vals, sel = [], []
+    for s0 in range(0, flat.shape[0], SORT_CHUNK):
+        sv, si = torch.sort(flat[s0:s0 + SORT_CHUNK], dim=1, stable=True)
+        # copies: a view would keep the whole sorted chunk alive
+        vals.append(sv[:, :k].contiguous())
+        sel.append(si[:, :k].contiguous())
+    if len(vals) == 1:
+        return vals[0], sel[0]
+    return torch.cat(vals), torch.cat(sel)
+
+
+def _stream_topk(planes: Iterator[torch.Tensor], k: int, ws2: int):
+    """Running top-K merged with each dt plane (search_dense.py:628-658):
+    the running entries come from earlier planes and precede the new
+    plane's in the stable sort, so ties keep the one-shot order."""
+    run_v = run_s = None
+    for di, cand in enumerate(planes):
+        if run_v is None:
+            sv, si = torch.sort(cand, dim=1, stable=True)
+            run_s = si[:, :k].contiguous()
+        else:
+            code = di * ws2 + torch.arange(ws2, device=cand.device)
+            sv, si = torch.sort(torch.cat([run_v, cand], dim=1), dim=1,
+                                stable=True)
+            mc = torch.cat([run_s, code.expand(cand.shape[0], ws2)], dim=1)
+            run_s = mc.gather(1, si[:, :k])
+            del mc
+        # copies, and the sort's scratch freed before the next plane is
+        # computed: the running state is all this mode keeps
+        run_v = sv[:, :k].contiguous()
+        del sv, si, cand
+    return run_v, run_s
+
+
 def exec_search_dense(video: torch.Tensor, sites: torch.Tensor,
                       cfg: StageConfig,
                       levels: Optional[List[torch.Tensor]] = None,
-                      dist_fn: Callable = patch_dist
+                      dist_fn: Callable = patch_dist,
+                      dense_fn: Callable = dense_dist
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-K search for lattice ``sites`` (S, 3) of ``video`` (T, C, H, W).
 
     Returns (vals (S, K) f32 ascending, inds (S, K) int32 flat indices,
     -1 invalid).  ``levels`` reuses a pyramid from ``search_levels``;
-    ``dist_fn`` is the distance function (the device-dispatching wrapper by
-    default; the tests and the on-card comparison pass the plain one).
+    ``dist_fn`` (K1, ``dense_rows="auto"``) and ``dense_fn`` (K3,
+    ``dense_rows="full"``) are the distance functions (the
+    device-dispatching wrappers by default; the tests and the on-card
+    comparison pass the plain ones).
     """
     t_len, c_full, h, w = video.shape
     k = cfg.npatches
@@ -62,44 +163,53 @@ def exec_search_dense(video: torch.Tensor, sites: torch.Tensor,
     half = (w_s - 1) // 2
     ws2 = w_s * w_s
     s_cnt = sites.shape[0]
-    inv = inv_norm(cfg)
     dt_lo, dt_hi = eff_dt_range(cfg, t_len)
     n_dt = dt_hi - dt_lo + 1
     if n_dt * ws2 < k:
         raise ValueError(f"{n_dt * ws2} candidates < K={k}")
     if levels is None:
         levels = search_levels(video, cfg)
-    sites = sites.to(device=video.device, dtype=torch.int64)
-
-    cand = None                                        # (n_dt, S, ws2)
-    for lvl, v_l in enumerate(levels):
-        qt, qy, qx = level_queries(sites, lvl, v_l.shape[2], v_l.shape[3],
-                                   cfg)
-        raw = dist_fn(v_l, qt, qy, qx, dt_lo, n_dt, pt, ps, w_s)
-        if cfg.search_bf16:
-            raw = raw.to(torch.bfloat16).to(torch.float32)
-        part = raw * inv
-        cand = part if cand is None else cand + part
-
+    dev = video.device
+    sites = sites.to(device=dev, dtype=torch.int64)
     ts, ys, xs = sites[:, 0], sites[:, 1], sites[:, 2]
-    dts = torch.arange(dt_lo, dt_hi + 1, device=video.device)
-    f = ts[None, :] + dts[:, None]                     # (n_dt, S)
-    valid = (f >= 0) & (f <= t_len - pt)
-    inf = torch.tensor(float("inf"), device=video.device)
-    zero = torch.zeros((), device=video.device)
-    cand = cand - cfg.offset + torch.where(valid, zero, inf)[:, :, None]
-    dgrid = torch.arange(w_s, device=video.device)
-    cy = ys[:, None, None] - half + dgrid[None, :, None]
-    cx = xs[:, None, None] - half + dgrid[None, None, :]
-    bad = (cy < 0) | (cy > h - ps) | (cx < 0) | (cx > w - ps)
-    oob = torch.where(bad, inf, zero).reshape(s_cnt, ws2)
-    cand = cand + oob[None]
+    f = ts[None, :] + torch.arange(dt_lo, dt_hi + 1, device=dev)[:, None]
+    valid = (f >= 0) & (f <= t_len - pt)               # (n_dt, S)
+    inf = torch.tensor(float("inf"), device=dev)
+    zero = torch.zeros((), device=dev)
+    oob = None
+    if cfg.border_mode == "mask":
+        dgrid = torch.arange(w_s, device=dev)
+        cy = ys[:, None, None] - half + dgrid[None, :, None]
+        cx = xs[:, None, None] - half + dgrid[None, None, :]
+        bad = (cy < 0) | (cy > h - ps) | (cx < 0) | (cx > w - ps)
+        oob = torch.where(bad, inf, zero).reshape(s_cnt, ws2)
 
-    # (S, n_dt*ws2) in enumeration order (dt, dy, dx); a stable ascending
-    # sort lists equal values earliest position first, like lax.top_k
-    flat = cand.permute(1, 0, 2).reshape(s_cnt, n_dt * ws2)
-    svals, sel = torch.sort(flat, dim=1, stable=True)
-    vals, sel = svals[:, :k].contiguous(), sel[:, :k]
+    def mask(cand, ok):
+        """-offset, +inf where ``ok`` (the leading dims of ``cand``) is
+        False, +inf out of bounds: additions, so x + 0 stays x."""
+        cand = cand - cfg.offset + torch.where(ok, zero, inf)[..., None]
+        return cand if oob is None else cand + oob
+
+    if cfg.dense_rows == "full":
+        # one (level, dt) plane at a time; per-dt candidates
+        planes = (mask(cand, valid[di]) for di, cand in enumerate(
+            _full_planes(levels, sites, cfg, dt_lo, n_dt, dense_fn)))
+    else:
+        planes = mask(_site_planes(levels, sites, cfg, dt_lo, n_dt, dist_fn),
+                      valid)                           # (n_dt, S, ws2)
+    if cfg.topk == "stream" and ws2 >= k:
+        vals, sel = _stream_topk(planes, k, ws2)
+    else:
+        # (S, n_dt*ws2) in enumeration order (dt, dy, dx)
+        if cfg.dense_rows == "full":
+            flat = torch.empty((s_cnt, n_dt, ws2), dtype=torch.float32,
+                               device=dev)
+            for di, cand in enumerate(planes):
+                flat[:, di] = cand
+        else:
+            flat = planes.permute(1, 0, 2)
+        vals, sel = _sorted_topk(flat.reshape(s_cnt, n_dt * ws2), k)
+        del flat, planes
 
     dt_i = sel // ws2 + dt_lo
     rem = sel % ws2

@@ -1,9 +1,13 @@
 """One denoising pass (``proc_nl``) in PyTorch: vnlb_tpu/pipeline.py with
-the exact top-K, both border modes, zero or user-given flow.
+every top-K mode, both dense row modes, both border modes, zero or
+user-given flow.
 
 RGB -> YUV, the coverage lattice of sites in search order (``plan_sites``),
-then for each chunk of sites: search (the dense zero-flow search or the
-per-site gather search, kernel K1 for the distances of both), patch gather
+then, under ``dense_rows="full"``, the dense search of every dense site in
+one call (kernel K3's all-pixel planes are shared by all of them, as JAX's
+``precompute_inds`` shares them), then for each chunk of sites: search
+(the dense zero-flow search or the per-site gather search, kernel K1 for
+the distances of both, unless the first phase searched them), patch gather
 (kernel K4), flat-area flags (second pass), the Bayes filter in any of its
 modes (the econ filter is kernel K2, the two-factor filter kernel K5) or
 the raw patches (``deno="ave"``), ``agg_k`` thinning and the scatter into
@@ -24,6 +28,7 @@ import torch
 from .config import StageConfig
 from .ops import agg, color, flat, gather
 from .ops.bayes import ave_denoise, bayes_denoise
+from .ops.dense_dist import dense_dist, dense_dist_plain
 from .ops.econ_filter import econ_filter, econ_filter_plain
 from .ops.mask import interior_split, lattice_sites
 from .ops.patch_dist import patch_dist, patch_dist_plain
@@ -45,15 +50,17 @@ class Kernels(NamedTuple):
     econ_filter: object
     patch_gather: object
     poly_filter: object
+    dense_dist: object
 
 
 # the device-dispatching wrappers (kernels on CUDA, plain versions on CPU)
 KERNELS = Kernels(patch_dist=patch_dist, econ_filter=econ_filter,
-                  patch_gather=patch_gather, poly_filter=poly_filter)
+                  patch_gather=patch_gather, poly_filter=poly_filter,
+                  dense_dist=dense_dist)
 # the plain PyTorch versions on any device (on-card comparison)
 PLAIN = Kernels(patch_dist=patch_dist_plain, econ_filter=econ_filter_plain,
                 patch_gather=patch_gather_plain,
-                poly_filter=poly_filter_plain)
+                poly_filter=poly_filter_plain, dense_dist=dense_dist_plain)
 
 
 def check_supported(cfg: StageConfig) -> None:
@@ -63,10 +70,6 @@ def check_supported(cfg: StageConfig) -> None:
         raise NotImplementedError(
             f"vnlb_tpu_torch does not run {what} yet (ROADMAP.md, {item})")
 
-    if cfg.dense_rows == "full":
-        no("dense_rows='full'", "item 13: kernel K3")
-    if cfg.topk != "exact":
-        no(f"topk={cfg.topk!r}", "item 9: streaming and approximate top-K")
     modes = "item 11: the aggregation modes and the econ left regime"
     p_eff = cfg.pdim * (3 if cfg.couple_channels else 1)   # RGB videos
     if (cfg.eig_method == "poly" and cfg.poly_impl != "pallas"
@@ -83,16 +86,18 @@ def check_supported(cfg: StageConfig) -> None:
         raise ValueError(f"unknown deno mode [{cfg.deno}]")
 
 
-def plan_sites(shape, cfg: StageConfig, zero_flow: bool):
+def plan_sites(shape, cfg: StageConfig, zero_flow: bool, t_origin: int = 0):
     """Sites of the pass in search order (vnlb_tpu/pipeline.py:341-368):
     (sites (S, 3) int32, n_dense).  The first ``n_dense`` sites take the
     dense zero-flow search, the rest the per-site gather search.
+    ``t_origin`` anchors the lattice phases to global frame indices
+    (streaming windows).
 
     * nonzero flow: every lattice site, raster order, gather search;
     * zero flow, ``border_mode="mask"``: every site, dense search;
     * zero flow, ``border_mode="slide"``: interior sites (dense search),
       then border sites (gather search)."""
-    sites = lattice_sites(shape, cfg)
+    sites = lattice_sites(shape, cfg, t_origin)
     if not zero_flow:
         return sites, 0
     if cfg.border_mode == "mask":
@@ -114,6 +119,13 @@ def accumulate(noisy_yuv: torch.Tensor, basic_yuv: torch.Tensor,
     d = c * cfg.ps * cfg.ps
     dev = noisy_yuv.device
     levels = search_levels(srch_yuv, cfg)
+    dense = None
+    if n_dense and cfg.dense_rows == "full":
+        # before the accumulator exists: the search's planes and candidate
+        # buffer are the pass's largest temporaries
+        _, dense = exec_search_dense(srch_yuv, sites[:n_dense], cfg,
+                                     levels=levels,
+                                     dense_fn=kernels.dense_dist)
     acc = torch.zeros((t_len * hp * wp, cfg.pt * d + 1), dtype=torch.float32,
                       device=dev)
     ka = (cfg.agg_k if cfg.agg_k and cfg.agg_k < cfg.npatches
@@ -126,7 +138,9 @@ def accumulate(noisy_yuv: torch.Tensor, basic_yuv: torch.Tensor,
 
     for s0, s1 in bounds:
         chunk = sites[s0:s1]
-        if s0 < n_dense:
+        if s0 < n_dense and dense is not None:
+            inds = dense[s0:s1]
+        elif s0 < n_dense:
             vals, inds = exec_search_dense(srch_yuv, chunk, cfg,
                                            levels=levels,
                                            dist_fn=kernels.patch_dist)
@@ -179,12 +193,14 @@ def _as_flow(flow, shape, device) -> torch.Tensor:
 
 def proc_nl(noisy: torch.Tensor, basic: Optional[torch.Tensor],
             clean: Optional[torch.Tensor], fflow, bflow, cfg: StageConfig,
-            zero_flow: Optional[bool] = None,
+            zero_flow: Optional[bool] = None, t_origin: int = 0,
             kernels: Kernels = KERNELS) -> torch.Tensor:
     """One pass: RGB (T, C, H, W) in, RGB denoised out, on the device of
     ``noisy``.  ``fflow``/``bflow`` are (T, 2, H, W) flows (None: zero).
     ``zero_flow`` selects the dense search for the planned sites; when
-    None it is detected from the flow values."""
+    None it is detected from the flow values.  ``t_origin`` is the global
+    index of frame 0 (streaming windows align their lattices with the
+    whole clip's)."""
     check_supported(cfg)
     noisy = noisy.to(torch.float32)
     shape = tuple(int(s) for s in noisy.shape)
@@ -210,7 +226,7 @@ def proc_nl(noisy: torch.Tensor, basic: Optional[torch.Tensor],
                              else clean.to(torch.float32))
     else:
         raise ValueError(f"unknown srch_img [{cfg.srch_img}]")
-    sites, n_dense = plan_sites(shape, cfg, zero_flow)
+    sites, n_dense = plan_sites(shape, cfg, zero_flow, t_origin)
     sites = torch.as_tensor(sites, device=noisy.device)
     deno_img, wts_img = accumulate(noisy_yuv, basic_yuv, srch, fflow, bflow,
                                    sites, n_dense, cfg, kernels)

@@ -15,7 +15,14 @@ the clip's own drift flow, the API default with ``poly_impl="pallas"``
 the first pass: K2 on groups beyond shared memory), the API default with
 the all-rows dense search (``dense_rows="full"``: kernel K3) and the exact
 and the streaming top-K; then ``denoise_streaming`` of a 24x480x854 clip
-against the whole-clip ``denoise``.  Every phase prints one line; any
+against the whole-clip ``denoise``.  Then the halo-sharded pass
+(``vnlb_tpu_torch.parallel``): K1's tile entry against its plain version
+on the strips of a 4-strip split, the one-card strip runner over all four
+strips of both passes against the mask-border ``proc_nl``, and a 2-rank
+gloo world on the one card (``denoise_halo`` bitwise against the 2-strip
+composition, ``proc_nl_halo`` with the drift flow, ``denoise_sharded``,
+``denoise_streaming(mesh=...)`` of a 12x480x854 clip).  Every phase prints
+one line; any
 failure raises and the script exits nonzero.  The second-to-last line is the kernel table as JSON (each kernel's time, its
 plain version's and its bound: the larger of its bytes over the memory
 rate and its operations over the peak rate of their type), the last line
@@ -72,6 +79,12 @@ REF_SMALL_MODES = {
 DENSE_FULL = dict(dense_rows="full")
 STREAM_T, STREAM_CHUNK = 24, 4
 STREAM_CFG = dict(nwt_f=2, nwt_b=2, dense_rows="full", topk="stream")
+# the halo-sharded pass: the API default under mask borders in 4 strips
+# (one card) and in a 2-rank world; its streaming run, 12 frames in chunks
+# of 4, nwt 2
+HALO_CFG = dict(border_mode="mask")
+HALO_STREAM_T, HALO_STREAM_CFG = 12, dict(nwt_f=2, nwt_b=2,
+                                          border_mode="mask")
 # H100 SXM data-sheet peaks: f32 on CUDA cores, bf16 on tensor cores (a
 # product of bf16-rounded operands accumulated in f32 is exactly what a
 # bf16 tensor-core MMA computes), HBM3
@@ -120,16 +133,19 @@ def bound(f32_flops, bf16_flops, nbytes):
                                      else "bytes")
 
 
-def k1_work(sites, vid, scfg, starts=0):
-    """bound() of K1 over 7 dt planes: per (site, dt, candidate, pixel) a
-    subtraction and a multiply-add in f32; the video and the (S, 3) query
-    sites (and ``starts`` (7, S) int32 window-start tensors) read once,
-    the distances written once."""
+def k1_work(sites, vid, scfg, starts=0, planes=7, cands=None):
+    """bound() of K1 over ``planes`` dt planes: per (site, dt, candidate,
+    pixel) a subtraction and a multiply-add in f32, for ``cands`` computed
+    (site, dt, candidate) triples (all of them by default; the tile entry
+    skips the ones outside the frame); the video and the (S, 3) query
+    sites (and ``starts`` (planes, S) int32 window-start tensors) read
+    once, the distances written once."""
     n = sites.shape[0]
-    flops = 3 * n * 7 * scfg.w_s ** 2 * scfg.pt * vid.shape[1] \
-        * scfg.ps ** 2
+    if cands is None:
+        cands = n * planes * scfg.w_s ** 2
+    flops = 3 * cands * scfg.pt * vid.shape[1] * scfg.ps ** 2
     nbytes = (vid.numel() * 4 + sites.numel() * sites.element_size()
-              + starts * 7 * n * 4 + n * 7 * scfg.w_s ** 2 * 4)
+              + starts * planes * n * 4 + n * planes * scfg.w_s ** 2 * 4)
     return bound(flops, 0, nbytes)
 
 
@@ -252,6 +268,270 @@ def e2e(vt, name, noisy, clean, dev, counters, expect, cfg=None,
     return launches, deno, basic
 
 
+def assert_close(name, got, want):
+    """tests/test_halo.py's bound: max |d| <= 0.5, mean |d| <= 0.02 gray
+    levels (near-tie top-K swaps only); returns (max, mean)."""
+    diff = np.abs(np.asarray(got) - np.asarray(want))
+    if not (diff.max() <= 0.5 and diff.mean() <= 0.02):
+        raise AssertionError(f"{name}: max |d| {diff.max()}, mean |d| "
+                             f"{diff.mean()}")
+    return diff.max(), diff.mean()
+
+
+def strip_tile(img, strip, hs, halo):
+    """Rows [strip*hs - halo, (strip+1)*hs + halo) of (T, C, H, W), zeros
+    past the frame."""
+    base = strip * hs - halo
+    tile = img.new_zeros(img.shape[:2] + (hs + 2 * halo, img.shape[3]))
+    lo, hi = max(base, 0), min(base + hs + 2 * halo, img.shape[2])
+    tile[:, :, lo - base:hi - base] = img[:, :, lo:hi]
+    return tile
+
+
+def k1_tile_phase(yuv, shape, dev):
+    """K1's tile entry against its plain version: the four strips of a
+    4-strip split, level 0 of each pass, one chunk of 4096 home-strip
+    sites each (the first; the last on the last strip), every dt plane; then the whole frame as the tile, bitwise
+    against K1 plus the mask-border +inf.  Returns (max |d| of the finite
+    values, timing record of strip 1, stage 1)."""
+    import vnlb_tpu_torch as vt
+    from vnlb_tpu_torch.ops.mask import lattice_sites
+    from vnlb_tpu_torch.ops.patch_dist import (patch_dist, patch_dist_tile,
+                                               patch_dist_tile_plain,
+                                               tile_oob)
+    from vnlb_tpu_torch.ops.search import eff_dt_range
+    from vnlb_tpu_torch.parallel.halo import (_plan_strip_sites,
+                                              _strip_geometry)
+
+    err, record = 0.0, None
+    for stage in (0, 1):
+        scfg = vt.default_config(SIGMA, **HALO_CFG).stage(stage)
+        halo, hs, h_run = _strip_geometry(shape, scfg, 4)
+        dt_lo, dt_hi = eff_dt_range(scfg, shape[0])
+        n_dt = dt_hi - dt_lo + 1
+        hp_g, wp = h_run - scfg.ps + 1, W - scfg.ps + 1
+        v0 = yuv[:, :scfg.dist_chnls].contiguous()
+        for strip in range(4):
+            # the last strip's last chunk reaches its zero-filled bottom rows
+            sites, _ = _plan_strip_sites(shape, scfg, 4, halo, strip)
+            sites = sites[-4096:] if strip == 3 else sites[:4096]
+            sites = torch.from_numpy(sites).to(dev)
+            tile = strip_tile(v0, strip, hs, halo)
+            args = (tile, sites[:, 0], sites[:, 1], sites[:, 2], dt_lo, n_dt,
+                    scfg.pt, scfg.ps, scfg.w_s, strip * hs - halo, hp_g, wp)
+            got = patch_dist_tile(*args)
+            want = patch_dist_tile_plain(*args)
+            torch.cuda.synchronize()
+            fin = torch.isfinite(want)
+            if not torch.equal(torch.isfinite(got), fin):
+                raise AssertionError(f"K1 tile s{stage} strip {strip}: +inf "
+                                     f"positions differ")
+            rel = rel_err(got[fin], want[fin])
+            err = max(err, (got[fin] - want[fin]).abs().max().item())
+            if not rel < 1e-5:
+                raise AssertionError(f"K1 tile s{stage} strip {strip}: max "
+                                     f"relative error {rel}")
+            kms = cuda_ms(lambda: patch_dist_tile(*args), 5)
+            pms = cuda_ms(lambda: patch_dist_tile_plain(*args), 1)
+            bms, by = k1_work(sites, tile, scfg, planes=n_dt,
+                              cands=int(fin.sum().item()))
+            log("k1_tile", stage=stage, strip=strip,
+                tile=f"{tile.shape[2]}x{tile.shape[3]}",
+                base_row=strip * hs - halo, sites=sites.shape[0],
+                dt_planes=n_dt, inf_share=f"{1 - fin.float().mean().item():.4f}",
+                max_rel_err=f"{rel:.3g}", kernel_ms=f"{kms:.3f}",
+                plain_ms=f"{pms:.3f}", bound_ms=f"{bms:.4f}", bound_by=by)
+            if (stage, strip) == (1, 1):
+                record = (kms, pms, (bms, by))
+            del got, want
+        # the whole frame as the tile: K1 plus the mask, bit for bit
+        sites = torch.from_numpy(lattice_sites(shape, scfg)[:4096]).to(dev)
+        args = (v0, sites[:, 0], sites[:, 1], sites[:, 2], dt_lo, n_dt,
+                scfg.pt, scfg.ps, scfg.w_s)
+        bad = tile_oob(sites[:, 1], sites[:, 2], scfg.w_s, 0, H - scfg.ps + 1,
+                       wp)
+        if not torch.equal(patch_dist_tile(*args, 0, H - scfg.ps + 1, wp),
+                           patch_dist(*args).masked_fill(bad[None],
+                                                         float("inf"))):
+            raise AssertionError(f"K1 tile s{stage}: whole frame not bitwise "
+                                 f"K1 + mask")
+        log("k1_tile_whole_frame", stage=stage, sites=sites.shape[0],
+            bitwise_equal_k1_plus_mask=True)
+    return err, record
+
+
+def halo_strips_phase(vt, noisy, clean, dev, counters, mono):
+    """strip_runner over the four strips of both passes, then
+    combine_strips, against the one-card pass under mask borders
+    (``mono`` = its (deno, basic)); one strip again with the plain
+    versions.  Returns the launches of the composed run."""
+    from vnlb_tpu_torch.parallel.halo import combine_strips, strip_runner
+    from vnlb_tpu_torch.utils.metrics import compute_psnr
+
+    cfg = vt.default_config(SIGMA, **HALO_CFG)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    basic = None
+    for stage in (0, 1):
+        tiles, meta = [], None
+        for i in range(4):
+            run, meta = strip_runner(noisy, basic, cfg.stage(stage), 4, i,
+                                     device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            ts = time.perf_counter()
+            tiles.append(run())
+            torch.cuda.synchronize()
+            log("halo_strip", stage=stage, strip=i, sites=meta["sites"],
+                tile=f"{meta['hs'] + 2 * meta['halo']}x{W}",
+                seconds=f"{time.perf_counter() - ts:.4f}",
+                peak_mem_gib=f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f}",
+                held_before_gib=f"{base / 2 ** 30:.3f}")
+            del run
+        out = combine_strips(tiles, cfg.stage(stage), noisy, basic, meta)
+        del tiles
+        if stage == 0:
+            basic = out
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    need = ("patch_dist", "patch_dist_tile", "econ_filter", "patch_gather")
+    if any(launches[k] == 0 for k in need) or launches["dense_dist"] \
+            or launches["poly_filter"]:
+        raise AssertionError(f"halo_strips: launches {launches}")
+    deno_np, basic_np = out.cpu().numpy(), basic.cpu().numpy()
+    m_deno, m_basic = (x.cpu().numpy() for x in mono)
+    stats = {}
+    for name, got, want in (("basic", basic_np, m_basic),
+                            ("deno", deno_np, m_deno)):
+        mx, mean = assert_close(f"halo_strips {name}", got, want)
+        dpsnr = abs(compute_psnr(got, clean) - compute_psnr(want, clean))
+        if not dpsnr <= 0.02:
+            raise AssertionError(f"halo_strips {name}: PSNR differs by "
+                                 f"{dpsnr} dB")
+        stats[name] = f"{mx:.4g}/{mean:.4g}/{dpsnr:.4g}"
+    log("halo_strips", seconds=f"{wall:.3f}",
+        psnr_basic=f"{compute_psnr(basic_np, clean):.4f}",
+        psnr_deno=f"{compute_psnr(deno_np, clean):.4f}",
+        basic_max_mean_dpsnr=stats["basic"],
+        deno_max_mean_dpsnr=stats["deno"], **launches)
+
+    # one strip with the plain versions: the same tile within the
+    # plain-pass bound of the e2e phases (0.02 dB of the normalized tile)
+    scfg = cfg.stage(0)
+    run, meta = strip_runner(noisy, None, scfg, 4, 1, device=dev)
+    got = run()
+    run_p, _ = strip_runner(noisy, None, scfg, 4, 1, device=dev,
+                            kernels=vt.PLAIN)
+    t0 = time.perf_counter()
+    want = run_p()
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    lo = meta["halo"]
+    hi = lo + meta["hs"]
+    ref = torch.from_numpy(clean[:, :, meta["hs"]:2 * meta["hs"]]).to(dev)
+    norm = []
+    for d, w in (got, want):
+        d, w = d[:, :, lo:hi], w[:, lo:hi]
+        norm.append(d / w.clamp(min=1e-6)[:, None])
+    from vnlb_tpu_torch.ops import color
+
+    psnrs = [compute_psnr(color.yuv2rgb(x).cpu().numpy(), ref.cpu().numpy())
+             for x in norm]
+    mad = (norm[0] - norm[1]).abs().mean().item()
+    log("halo_strip_plain", strip=1, stage=0, seconds=f"{plain_s:.3f}",
+        psnr_kernels=f"{psnrs[0]:.4f}", psnr_plain=f"{psnrs[1]:.4f}",
+        mean_abs_diff=f"{mad:.4g}")
+    if not abs(psnrs[0] - psnrs[1]) < 0.02:
+        raise AssertionError("halo_strip_plain: kernels and plain versions "
+                             "differ by >= 0.02 dB")
+    return launches
+
+
+def halo_world_phase(vt, noisy, clean, dev, drift, mono):
+    """A 2-rank gloo world on the one card: denoise_halo bitwise against
+    the 2-strip composition, proc_nl_halo with the drift flow against the
+    one-card flow pass, denoise_sharded against the mask-border denoise
+    (``mono``), denoise_streaming(mesh=...) of a 12-frame clip against the
+    one-card streaming."""
+    from vnlb_tpu_torch.parallel.halo import (combine_strips, denoise_halo,
+                                              proc_nl_halo, strip_runner)
+    from vnlb_tpu_torch.parallel.launch import run_world, sequence
+    from vnlb_tpu_torch.parallel.tiled import denoise_sharded
+    from vnlb_tpu_torch.testing.data import add_noise, synthetic_video
+    from vnlb_tpu_torch.utils.flow_io import expand_flows
+
+    cfg = vt.default_config(SIGMA, **HALO_CFG)
+    ff, bf = expand_flows(*drift)
+    s_clean = synthetic_video(HALO_STREAM_T, H, W, seed=0)
+    s_noisy = add_noise(s_clean, SIGMA, seed=1)
+    s_cfg = vt.default_config(SIGMA, **HALO_STREAM_CFG)
+    calls = [(denoise_halo, (noisy, SIGMA), dict(cfg=cfg)),
+             (proc_nl_halo, (noisy, None, ff, bf,
+                             vt.default_config(SIGMA).stage(0)), {}),
+             (denoise_sharded, (noisy, SIGMA), dict(cfg=cfg)),
+             (vt.denoise_streaming, (s_noisy, SIGMA),
+              dict(chunk=STREAM_CHUNK, cfg=s_cfg))]
+    t0 = time.perf_counter()
+    # the ranks at this process's torch threads: on the host the plain
+    # versions' batched products round with the thread count
+    ranks = run_world(sequence, 2, args=(calls,), device=str(dev),
+                      threads=torch.get_num_threads())
+    world_s = time.perf_counter() - t0
+    (halo_out, halo_s), (flow_out, flow_s), (sh_out, sh_s), \
+        (st_out, st_s) = ranks[0]
+    for r in ranks[1:]:
+        for (a, _), (b, _) in zip(ranks[0], r):
+            a = a if isinstance(a, tuple) else (a,)
+            b = b if isinstance(b, tuple) else (b,)
+            if not all(np.array_equal(x, y) for x, y in zip(a[:2], b[:2])):
+                raise AssertionError("halo_world: the ranks' outputs differ")
+
+    # denoise_halo against the 2-strip composition on this process
+    basic = None
+    for stage in (0, 1):
+        tiles, meta = [], None
+        for i in range(2):
+            run, meta = strip_runner(noisy, basic, cfg.stage(stage), 2, i,
+                                     device=dev)
+            tiles.append(run())
+        basic_or_deno = combine_strips(tiles, cfg.stage(stage), noisy, basic,
+                                       meta)
+        if stage == 0:
+            basic = basic_or_deno
+    comp = (basic_or_deno.cpu().numpy(), basic.cpu().numpy())
+    if not all(np.array_equal(a, b) for a, b in zip(halo_out, comp)):
+        raise AssertionError("halo_world: denoise_halo is not bitwise equal "
+                             "to the 2-strip composition")
+    flow_ref = vt.proc_nl(torch.from_numpy(noisy).to(dev), None, None,
+                          torch.from_numpy(ff).to(dev),
+                          torch.from_numpy(bf).to(dev),
+                          vt.default_config(SIGMA).stage(0)).cpu().numpy()
+    flow_err = assert_close("halo_world flow", flow_out, flow_ref)
+    m_deno, m_basic = (x.cpu().numpy() for x in mono)
+    sh_err = [assert_close(f"halo_world sharded {n}", g, w)
+              for n, g, w in (("deno", sh_out[0], m_deno),
+                              ("basic", sh_out[1], m_basic))]
+    t1 = time.perf_counter()
+    sd, sb, one_s = vt.denoise_streaming(s_noisy, SIGMA, chunk=STREAM_CHUNK,
+                                         cfg=s_cfg, device=dev)
+    st_err = [assert_close(f"halo_world streaming {n}", g, w)
+              for n, g, w in (("deno", st_out[0], sd),
+                              ("basic", st_out[1], sb))]
+    log("halo_world", ranks=2, backend="gloo", device=str(dev),
+        world_seconds=f"{world_s:.2f}", denoise_halo_s=f"{halo_s:.3f}",
+        bitwise_equal_2_strip_composition=True,
+        flow_halo_s=f"{flow_s:.3f}",
+        flow_max_mean=f"{flow_err[0]:.4g}/{flow_err[1]:.4g}",
+        sharded_s=f"{sh_s:.3f}",
+        sharded_deno_max_mean=f"{sh_err[0][0]:.4g}/{sh_err[0][1]:.4g}",
+        streaming_mesh_s=f"{st_s:.3f}", streaming_one_card_s=f"{one_s:.3f}",
+        streaming_deno_max_mean=f"{st_err[0][0]:.4g}/{st_err[0][1]:.4g}",
+        reference_s=f"{time.perf_counter() - t1:.2f}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -263,7 +543,8 @@ def main():
                                                dense_dist_plain)
     from vnlb_tpu_torch.ops.econ_filter import econ_filter, econ_filter_plain
     from vnlb_tpu_torch.ops.mask import interior_split, lattice_sites
-    from vnlb_tpu_torch.ops.patch_dist import patch_dist, patch_dist_plain
+    from vnlb_tpu_torch.ops.patch_dist import (patch_dist, patch_dist_plain,
+                                               patch_dist_tile)
     from vnlb_tpu_torch.ops.patch_gather import (patch_gather,
                                                  patch_gather_plain)
     from vnlb_tpu_torch.ops.poly_filter import poly_filter, poly_filter_plain
@@ -634,7 +915,25 @@ def main():
         raise AssertionError("streaming: differs from the whole-clip run or "
                              "needs more memory")
 
-    # ---- 9. records ----
+    # ---- 9. the halo-sharded pass: K1's tile entry, the one-card strip
+    # runner over 4 strips, a 2-rank gloo world on this card ----
+    k1t_err, (k1t_ms, k1t_pms, (k1t_bms, k1t_by)) = k1_tile_phase(yuv, shape,
+                                                                  dev)
+    torch.cuda.empty_cache()
+    halo_cfg = vt.default_config(SIGMA, **HALO_CFG)
+    vt.denoise(noisy, SIGMA, cfg=halo_cfg, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    *mono, mono_s = vt.denoise(noisy, SIGMA, cfg=halo_cfg, device=dev)
+    log("halo_one_card", config="API default, mask borders",
+        seconds=f"{mono_s:.4f}",
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f}")
+    counters6 = counters + (patch_dist_tile,)
+    launches["halo_strips"] = halo_strips_phase(vt, noisy, clean, dev,
+                                                counters6, mono)
+    torch.cuda.empty_cache()
+    halo_world_phase(vt, noisy, clean, dev, drift, mono)
+
+    # ---- 10. records ----
     kms, pms, (k2_bms, k2_by) = k2_times["gram(s1)", 3 * 4096]
     g_kms, g_pms, (k4_bms, k4_by) = k4_times["s1"]
     p_kms, p_pms, (k5_bms, k5_by) = k5_times["left(s1)", 3 * 4096]
@@ -670,6 +969,12 @@ def main():
          "launches": launches["e2e_dense_full"]["dense_dist"],
          "max_abs_err": k3_err, "ms": k3_kms, "plain_ms": k3_pms,
          "bound_ms": k3_bms, "bound_by": k3_by, "library_ms": None},
+        {"name": "patch_dist_tile", "route": "cuda",
+         "source": "vnlb_tpu_torch/csrc/patch_dist.cu",
+         "replaces": "vnlb_tpu/ops/pallas_smat.py:526",
+         "launches": launches["halo_strips"]["patch_dist_tile"],
+         "max_abs_err": k1t_err, "ms": k1t_ms, "plain_ms": k1t_pms,
+         "bound_ms": k1t_bms, "bound_by": k1t_by, "library_ms": None},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

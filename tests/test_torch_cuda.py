@@ -17,7 +17,9 @@ from vnlb_tpu_torch.ops.dense_dist import (dense_dist, dense_dist_plain,
                                            frame_range)
 from vnlb_tpu_torch.ops.econ_filter import econ_filter, econ_filter_plain
 from vnlb_tpu_torch.ops.mask import lattice_sites
-from vnlb_tpu_torch.ops.patch_dist import patch_dist, patch_dist_plain
+from vnlb_tpu_torch.ops.patch_dist import (patch_dist, patch_dist_plain,
+                                           patch_dist_tile,
+                                           patch_dist_tile_plain, tile_oob)
 from vnlb_tpu_torch.ops.patch_gather import patch_gather, patch_gather_plain
 from vnlb_tpu_torch.ops.poly_filter import poly_filter, poly_filter_plain
 from vnlb_tpu_torch.ops.search import (_window_starts, eff_dt_range,
@@ -330,3 +332,84 @@ def test_streaming_on_card(card):
     d_m, b_m, _ = vt.denoise(noisy, 20.0, cfg=cfg, device=card)
     assert np.abs(d_s - d_m.cpu().numpy()).mean() < 1e-3
     assert np.abs(b_s - b_m.cpu().numpy()).mean() < 1e-3
+
+
+def _strip_case(stage, strip, card):
+    """A 5x128x96 clip in 4 strips (hs 32, halo 14): the search tile of
+    ``strip`` at ``stage``, its home sites and the global bounds."""
+    from vnlb_tpu_torch.parallel.halo import _plan_strip_sites, _strip_geometry
+
+    cfg = vt.default_config(20.0).stage(stage).replace(border_mode="mask")
+    rng = np.random.default_rng(5 + stage)
+    vid = rng.uniform(0, 255, (5, cfg.dist_chnls, 128, 96)).astype(np.float32)
+    shape = (5, 3, 128, 96)
+    halo, hs, h_run = _strip_geometry(shape, cfg, 4)
+    assert h_run == 128
+    sites, _ = _plan_strip_sites(shape, cfg, 4, halo, strip)
+    base_row = strip * hs - halo
+    tile = np.zeros((5, cfg.dist_chnls, hs + 2 * halo, 96), np.float32)
+    lo, hi = max(base_row, 0), min(base_row + hs + 2 * halo, h_run)
+    tile[:, :, lo - base_row:hi - base_row] = vid[:, :, lo:hi]
+    sites = torch.from_numpy(sites).to(card)
+    return (cfg, torch.from_numpy(tile).to(card), sites, base_row,
+            h_run - cfg.ps + 1, 96 - cfg.ps + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", [0, 1])
+@pytest.mark.parametrize("strip", [0, 1, 3])
+def test_patch_dist_tile_kernel_matches_plain(card, stage, strip):
+    """K1's tile entry: the same +inf positions (zero-filled halo rows on
+    the first and last strips, the left and right edges), finite values
+    as K1's."""
+    cfg, tile, sites, base_row, hp_g, wp = _strip_case(stage, strip, card)
+    args = (tile, sites[:, 0], sites[:, 1], sites[:, 2], -3, 7, cfg.pt,
+            cfg.ps, cfg.w_s, base_row, hp_g, wp)
+    before = patch_dist_tile.launches
+    got = patch_dist_tile(*args)
+    want = patch_dist_tile_plain(*args)
+    torch.cuda.synchronize()
+    assert patch_dist_tile.launches == before + 1
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin) and not fin.all()
+    assert torch.allclose(got[fin], want[fin], rtol=1e-5, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_patch_dist_tile_whole_frame_bitwise(card):
+    """With the whole frame as the tile, the tile entry is K1 plus the
+    mask-border +inf, bit for bit."""
+    cfg = vt.default_config(20.0).stage(1).replace(border_mode="mask")
+    vid = torch.from_numpy(np.random.default_rng(3).uniform(
+        0, 255, (5, 3, 60, 64)).astype(np.float32)).to(card)
+    sites = torch.from_numpy(lattice_sites((5, 3, 60, 64), cfg)).to(card)
+    hp_g, wp = 60 - cfg.ps + 1, 64 - cfg.ps + 1
+    args = (vid, sites[:, 0], sites[:, 1], sites[:, 2], -3, 7, cfg.pt,
+            cfg.ps, cfg.w_s)
+    got = patch_dist_tile(*args, 0, hp_g, wp)
+    bad = tile_oob(sites[:, 1], sites[:, 2], cfg.w_s, 0, hp_g, wp)
+    want = patch_dist(*args).masked_fill(bad[None], float("inf"))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_strip_composition_matches_proc_nl(card):
+    """strip_runner over the 4 strips of a 5x128x96 clip, then
+    combine_strips, against the one-device pass under mask borders
+    (tests/test_halo.py's bound), through K1's tile entry."""
+    from vnlb_tpu_torch.parallel.halo import combine_strips, strip_runner
+
+    clean = synthetic_video(5, 128, 96, seed=0)
+    noisy = add_noise(clean, 20.0, seed=1)
+    cfg = vt.default_config(20.0).stage(0).replace(border_mode="mask")
+    patch_dist_tile.launches = 0
+    tiles, meta = [], None
+    for i in range(4):
+        run, meta = strip_runner(noisy, None, cfg, 4, i, device=card)
+        tiles.append(run())
+    got = combine_strips(tiles, cfg, noisy, None, meta)
+    assert patch_dist_tile.launches > 0
+    want = vt.proc_nl(torch.from_numpy(noisy).to(card), None, None, None,
+                      None, cfg)
+    diff = (got - want).abs()
+    assert diff.max().item() < 0.5 and diff.mean().item() < 0.02

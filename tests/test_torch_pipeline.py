@@ -107,10 +107,16 @@ def test_unsupported_config_raises(clip, override):
 
 
 def test_streaming_mesh_raises(clip):
+    """denoise_streaming(mesh=...) runs each window through proc_nl_halo
+    (tests/test_torch_parallel.py runs it in a 2-rank world); 8 strips of
+    12 rows are below the halo of 14, so it refuses before any
+    communication."""
+    from vnlb_tpu_torch.parallel.comm import Mesh
+
     _, noisy = clip
-    with pytest.raises(NotImplementedError, match="item 15"):
-        vt.denoise_streaming(noisy, 20.0, chunk=3, mesh=object(),
-                             device="cpu")
+    mesh = Mesh(None, 0, 8, torch.device("cpu"))
+    with pytest.raises(ValueError, match="strip"):
+        vt.denoise_streaming(noisy, 20.0, chunk=3, mesh=mesh, device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -13,8 +13,13 @@ bench config, with zero or user-given flow, both dense row modes (the
 lattice-row search on K1, ``dense_rows="full"`` on K3), every top-K mode
 and every Bayes-filter mode (``eig_method`` poly / xla / jacobi /
 rational, the econ and two-factor polynomial filters, ``couple_channels``,
-``deno="ave"``), and ``denoise_streaming`` on one card.  Other
-configurations raise NotImplementedError naming their ROADMAP item.
+``deno="ave"``), ``denoise_streaming``, and ``parallel/`` over
+``torch.distributed``: the halo-sharded pass on K1's tile entry
+(``denoise_halo``, ``proc_nl_halo``, ``strip_runner``,
+``denoise_streaming(mesh=...)``), site parallelism (``denoise_sharded``),
+the filter batch split (``bayes_denoise_tp``) and ``denoise_pipelined``
+over two devices.  Other configurations raise NotImplementedError naming
+their ROADMAP item.
 """
 
 from .api import denoise, denoise_streaming

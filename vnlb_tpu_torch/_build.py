@@ -34,6 +34,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "vnlb_patch_dist": ([_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I,
                          _I, _I, _I, _I, _P, _P], _I),
+    "vnlb_patch_dist_tile": ([_P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _P, _P], _I),
     "vnlb_econ_filter": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                           _F, _F, _F, _F, _F, _I, _P, _P], _I),
     "vnlb_econ_filter_ws": ([_I, _I, _I], ctypes.c_longlong),

@@ -89,59 +89,85 @@ def denoise(noisy, sigma: float, flows=None, clean=None,
     return deno, basic, time.perf_counter() - t0
 
 
+def _pass_ctx(scfg) -> int:
+    """Context frames on each side of a streaming window: an output frame
+    takes deposits from sites up to nwt + pt - 1 frames away, whose windows
+    reach as far again."""
+    return 2 * max(scfg.nwt_b, scfg.nwt_f) + scfg.pt - 1
+
+
+def _windows(t_len: int, chunk: int, ctx: int):
+    """[(start, stop, lo, hi)]: output frames [start, stop) computed in the
+    fixed window [lo, hi) of chunk + 2*ctx frames (extra context only widens
+    the exact-match region)."""
+    win = min(t_len, chunk + 2 * ctx)
+    out = []
+    for start in range(0, t_len, chunk):
+        lo = max(0, min(start - ctx, t_len - win))
+        out.append((start, min(start + chunk, t_len), lo, lo + win))
+    return out
+
+
+def _window_pass(scfg, noisy, basic_full, fflow, bflow, zflow, lo, hi,
+                 device, mesh=None) -> torch.Tensor:
+    """One pass over frames [lo, hi) of the host clip, its lattice anchored
+    at frame lo: ``proc_nl`` on ``device``, or ``proc_nl_halo`` over
+    ``mesh``."""
+    bs = None if basic_full is None else basic_full[lo:hi]
+    if mesh is not None:
+        from .parallel.halo import proc_nl_halo
+
+        return proc_nl_halo(noisy[lo:hi], bs, fflow[lo:hi], bflow[lo:hi],
+                            scfg, mesh, t_origin=lo)
+    nz = torch.from_numpy(noisy[lo:hi]).to(device)
+    bs = None if bs is None else torch.from_numpy(bs).to(device)
+    ff, bf = ((None, None) if zflow else
+              (torch.from_numpy(fflow[lo:hi]).to(device),
+               torch.from_numpy(bflow[lo:hi]).to(device)))
+    return proc_nl(nz, bs, None, ff, bf, scfg, zero_flow=zflow, t_origin=lo)
+
+
+def _host_flows(noisy, flows):
+    """(noisy, fflow, bflow, zero_flow) as host arrays."""
+    noisy = np.asarray(noisy.cpu() if isinstance(noisy, torch.Tensor)
+                       else noisy, np.float32)
+    fflow, bflow, zflow = _prep_flows(noisy.shape, flows)
+    return noisy, fflow.numpy(), bflow.numpy(), zflow
+
+
 def denoise_streaming(noisy, sigma: float, chunk: int = 12, flows=None,
                       preset: str = "iphone",
                       cfg: Optional[VnlbConfig] = None, mesh=None,
                       device="cuda") -> Tuple[np.ndarray, np.ndarray, float]:
     """Two-pass denoising of a long clip in bounded device memory
-    (vnlb_tpu/api.py:86-167, the single-device branch).
+    (vnlb_tpu/api.py:86-167).
 
     Each pass streams over temporal chunks of ``chunk`` output frames, each
-    run in a fixed window of ``chunk + 2*ctx`` frames, ``ctx = 2*max(nwt)
-    + pt - 1``: an output frame takes deposits from sites up to nwt + pt -
-    1 frames away, whose windows reach as far again, so every contributing
-    site sees what it sees in the whole-clip run.  Pass 1 is assembled on
-    the host before pass 2 streams over it; each window's lattice is
-    anchored to global frame indices (``proc_nl(..., t_origin)``).  The
-    device holds one window at a time; outputs match ``denoise`` up to the
-    summation order of the scatter.
+    run in a fixed window of ``chunk + 2*ctx`` frames (``_pass_ctx``), so
+    every contributing site sees what it sees in the whole-clip run.  Pass
+    1 is assembled on the host before pass 2 streams over it; each window's
+    lattice is anchored to global frame indices (``proc_nl(...,
+    t_origin)``).  The device holds one window at a time; outputs match
+    ``denoise`` up to the summation order of the scatter.
 
-    ``mesh`` (spatial sharding across cards) is not ported.  Returns
-    (deno, basic, seconds) as host numpy arrays.
+    ``mesh`` (a ``parallel.comm.Mesh``): every rank of the world calls this
+    with the whole clip, and each window runs ``parallel.halo.proc_nl_halo``
+    split over H across the mesh, on the mesh's device (``device`` is then
+    not used).  Returns (deno, basic, seconds) as host numpy arrays.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "vnlb_tpu_torch does not run denoise_streaming(mesh=...) yet "
-            "(ROADMAP.md, item 15: the K1 tile entry with parallel/)")
     t0 = time.perf_counter()
     device = torch.device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    noisy = np.asarray(noisy.cpu() if isinstance(noisy, torch.Tensor)
-                       else noisy, np.float32)
+    noisy, fflow, bflow, zflow = _host_flows(noisy, flows)
     t_len = noisy.shape[0]
     cfg = cfg or default_config(sigma, preset=preset)
-    fflow, bflow, zflow = _prep_flows(noisy.shape, flows)
-    fflow, bflow = fflow.numpy(), bflow.numpy()
 
     def stream_pass(scfg, basic_full):
-        ctx = 2 * max(scfg.nwt_b, scfg.nwt_f) + scfg.pt - 1
         out = np.empty_like(noisy)
-        win = min(t_len, chunk + 2 * ctx)
-        for start in range(0, t_len, chunk):
-            stop = min(start + chunk, t_len)
-            # a fixed window that covers [start, stop); extra context only
-            # widens the exact-match region
-            lo = max(0, min(start - ctx, t_len - win))
-            hi = lo + win
-            nz = torch.from_numpy(noisy[lo:hi]).to(device)
-            bs = (None if basic_full is None
-                  else torch.from_numpy(basic_full[lo:hi]).to(device))
-            ff, bf = ((None, None) if zflow else
-                      (torch.from_numpy(fflow[lo:hi]).to(device),
-                       torch.from_numpy(bflow[lo:hi]).to(device)))
-            o = proc_nl(nz, bs, None, ff, bf, scfg, zero_flow=zflow,
-                        t_origin=lo)
+        for start, stop, lo, hi in _windows(t_len, chunk, _pass_ctx(scfg)):
+            o = _window_pass(scfg, noisy, basic_full, fflow, bflow, zflow,
+                             lo, hi, device, mesh)
             out[start:stop] = o[start - lo:stop - lo].cpu().numpy()
         return out
 

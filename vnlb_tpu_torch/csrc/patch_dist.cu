@@ -19,6 +19,17 @@
 // convolutions, vnlb_tpu/ops/search.py:207-259).  Output is f32; the caller
 // rounds.
 //
+// The tile entry (`vnlb_patch_dist_tile`) replaces the same Pallas kernel as
+// launched by `smat_distances_dt_tile` (vnlb_tpu/ops/pallas_smat.py:526) for
+// a halo strip of the H-sharded pass: the queries are tile coordinates, the
+// tile's row 0 is global row `base_row` (negative on strip 0), and every
+// candidate whose GLOBAL corner falls outside [0, hp_g-1] x [0, wp_g-1] gets
+// +inf and no arithmetic (the out-of-bounds mask of exec_search_dense_tile,
+// vnlb_tpu/ops/search_dense.py:448-453).  The TPU builds a 0/1 row-selection
+// matrix on the device for that; here the window is explicit per site, so
+// only the bound test is added.  In-bounds candidates run the same
+// instructions as the dense entry, so both give the same bits.
+//
 // What bounds it on the H100: arithmetic, not bytes.  Per site and dt it
 // reads one (w_s+ps-1)^2 region and one patch per channel plane (~11 KB at
 // stage-1 shapes) and does w_s^2 * pt*C*ps^2 (~66 K) multiply-adds, i.e.
@@ -36,12 +47,14 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kSitesPerBlock = 8;
 
+template <bool kTile>
 __global__ void __launch_bounds__(kThreads)
 patch_dist_kernel(const float* __restrict__ vid, int T, int C, int H, int W,
                   const int* __restrict__ qt, const int* __restrict__ qy,
                   const int* __restrict__ qx, const int* __restrict__ sy,
                   const int* __restrict__ sx, int S, int dt_lo, int pt,
-                  int ps, int w_s, float* __restrict__ out) {
+                  int ps, int w_s, int base_row, int hp_g, int wp_g,
+                  float* __restrict__ out) {
   extern __shared__ float smem[];
   const int R = w_s + ps - 1;
   const int cp = pt * C;
@@ -80,6 +93,13 @@ patch_dist_kernel(const float* __restrict__ vid, int T, int C, int H, int W,
     __syncthreads();
     for (int o = threadIdx.x; o < ws2; o += blockDim.x) {
       const int a = o / w_s, b = o - a * w_s;
+      if (kTile) {
+        const int cy = y0 + a + base_row, cx = x0 + b;
+        if (cy < 0 || cy > hp_g - 1 || cx < 0 || cx > wp_g - 1) {
+          out[ds * ws2 + o] = __int_as_float(0x7f800000);  // +inf
+          continue;
+        }
+      }
       float acc = 0.f;
       for (int k = 0; k < cp; ++k) {
         const float* q = qry + k * pp;
@@ -97,6 +117,27 @@ patch_dist_kernel(const float* __restrict__ vid, int T, int C, int H, int W,
   }
 }
 
+template <bool kTile>
+int launch(const float* vid, int T, int C, int H, int W, const int* qt,
+           const int* qy, const int* qx, const int* sy, const int* sx, int S,
+           int dt_lo, int n_dt, int pt, int ps, int w_s, int base_row,
+           int hp_g, int wp_g, float* out, void* stream) {
+  if (S <= 0 || n_dt <= 0) return 0;
+  const int R = w_s + ps - 1;
+  const size_t smem = (size_t)pt * C * (R * R + ps * ps) * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        patch_dist_kernel<kTile>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dim3 grid((S + kSitesPerBlock - 1) / kSitesPerBlock, n_dt);
+  patch_dist_kernel<kTile><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      vid, T, C, H, W, qt, qy, qx, sy, sx, S, dt_lo, pt, ps, w_s, base_row,
+      hp_g, wp_g, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // vid: (T, C, H, W) f32; qt/qy/qx: (S,) int32 query corners; sy/sx: null,
@@ -107,17 +148,20 @@ extern "C" int vnlb_patch_dist(const float* vid, int T, int C, int H, int W,
                                const int* sy, const int* sx, int S, int dt_lo,
                                int n_dt, int pt, int ps, int w_s, float* out,
                                void* stream) {
-  if (S <= 0 || n_dt <= 0) return 0;
-  const int R = w_s + ps - 1;
-  const size_t smem = (size_t)pt * C * (R * R + ps * ps) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        patch_dist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  dim3 grid((S + kSitesPerBlock - 1) / kSitesPerBlock, n_dt);
-  patch_dist_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      vid, T, C, H, W, qt, qy, qx, sy, sx, S, dt_lo, pt, ps, w_s, out);
-  return (int)cudaGetLastError();
+  return launch<false>(vid, T, C, H, W, qt, qy, qx, sy, sx, S, dt_lo, n_dt,
+                       pt, ps, w_s, 0, 0, 0, out, stream);
+}
+
+// The tile entry: vid is a (T, C, Ht, W) halo tile whose row 0 is global
+// row base_row; qt/qy/qx are tile-coordinate query corners; candidates with
+// a global corner outside [0, hp_g-1] x [0, wp_g-1] are +inf.
+extern "C" int vnlb_patch_dist_tile(const float* vid, int T, int C, int H,
+                                    int W, const int* qt, const int* qy,
+                                    const int* qx, int S, int dt_lo, int n_dt,
+                                    int pt, int ps, int w_s, int base_row,
+                                    int hp_g, int wp_g, float* out,
+                                    void* stream) {
+  return launch<true>(vid, T, C, H, W, qt, qy, qx, nullptr, nullptr, S,
+                      dt_lo, n_dt, pt, ps, w_s, base_row, hp_g, wp_g, out,
+                      stream);
 }

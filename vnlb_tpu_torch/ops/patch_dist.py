@@ -13,9 +13,16 @@ windows).  One function covers level 0 and the coarse needle levels: only
 the query coordinates and window starts differ.  Output is f32; the caller
 rounds (search_bf16) and normalizes.
 
-``patch_dist`` dispatches by device: a CPU tensor takes the plain version
-``patch_dist_plain``; a CUDA tensor launches the kernel, and a build or
-launch failure raises.  ``patch_dist.launches`` counts kernel launches.
+The tile entry ``patch_dist_tile`` (vnlb_tpu/ops/pallas_smat.py:526,
+``smat_distances_dt_tile``) computes the same distances on a halo strip
+tile of the H-sharded pass: the queries are tile coordinates, tile row 0 is
+global row ``base_row``, and a candidate whose GLOBAL corner lies outside
+[0, hp_g-1] x [0, wp_g-1] is +inf (its arithmetic skipped in the kernel).
+
+``patch_dist`` and ``patch_dist_tile`` dispatch by device: a CPU tensor
+takes the plain version; a CUDA tensor launches the kernel, and a build or
+launch failure raises.  ``patch_dist.launches`` and
+``patch_dist_tile.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -26,7 +33,8 @@ import torch
 
 from .. import _build
 
-__all__ = ["patch_dist", "patch_dist_plain", "patch_dist_kernel"]
+__all__ = ["patch_dist", "patch_dist_plain", "patch_dist_kernel",
+           "patch_dist_tile", "patch_dist_tile_plain", "tile_oob"]
 
 # sites per chunk of the plain version (bounds its gathered regions)
 _PLAIN_CHUNK = 4096
@@ -144,3 +152,70 @@ def patch_dist(vid: torch.Tensor, qt: torch.Tensor, qy: torch.Tensor,
 
 
 patch_dist.launches = 0
+
+
+def tile_oob(qy: torch.Tensor, qx: torch.Tensor, w_s: int, base_row: int,
+             hp_g: int, wp_g: int) -> torch.Tensor:
+    """(S, w_s*w_s) bool: candidate corners (tile row qy - half + a, column
+    qx - half + b) outside the global frame [0, hp_g-1] x [0, wp_g-1]."""
+    half = (w_s - 1) // 2
+    d = torch.arange(w_s, device=qy.device)
+    cy = qy.long()[:, None, None] - half + d[None, :, None] + base_row
+    cx = qx.long()[:, None, None] - half + d[None, None, :]
+    bad = (cy < 0) | (cy > hp_g - 1) | (cx < 0) | (cx > wp_g - 1)
+    return bad.reshape(qy.shape[0], w_s * w_s)
+
+
+def patch_dist_tile_plain(vid: torch.Tensor, qt: torch.Tensor,
+                          qy: torch.Tensor, qx: torch.Tensor, dt_lo: int,
+                          n_dt: int, pt: int, ps: int, w_s: int,
+                          base_row: int, hp_g: int,
+                          wp_g: int) -> torch.Tensor:
+    """Plain version of the tile entry: ``patch_dist_plain``, then +inf at
+    the candidates outside the global frame."""
+    out = patch_dist_plain(vid, qt, qy, qx, dt_lo, n_dt, pt, ps, w_s)
+    bad = tile_oob(qy, qx, w_s, base_row, hp_g, wp_g)
+    return out.masked_fill_(bad[None], float("inf"))
+
+
+def patch_dist_tile_kernel(vid: torch.Tensor, qt: torch.Tensor,
+                           qy: torch.Tensor, qx: torch.Tensor, dt_lo: int,
+                           n_dt: int, pt: int, ps: int, w_s: int,
+                           base_row: int, hp_g: int,
+                           wp_g: int) -> torch.Tensor:
+    """Launch the tile entry's CUDA kernel; all tensors on one CUDA
+    device."""
+    _check(vid, qt, qy, qx, n_dt, None, None)
+    if not (vid.is_cuda and qt.is_cuda and qy.is_cuda and qx.is_cuda):
+        raise ValueError("patch_dist_tile_kernel needs CUDA tensors")
+    t_len, c, h, w = vid.shape
+    vid = vid.contiguous()
+    ints = [v.to(torch.int32).contiguous() for v in (qt, qy, qx)]
+    s_cnt = qt.shape[0]
+    out = torch.empty((n_dt, s_cnt, w_s * w_s), dtype=torch.float32,
+                      device=vid.device)
+    err = _build.library().vnlb_patch_dist_tile(
+        vid.data_ptr(), t_len, c, h, w, *(v.data_ptr() for v in ints), s_cnt,
+        dt_lo, n_dt, pt, ps, w_s, base_row, hp_g, wp_g, out.data_ptr(),
+        torch.cuda.current_stream(vid.device).cuda_stream)
+    _build.check(err, "patch_dist_tile kernel")
+    patch_dist_tile.launches += 1
+    return out
+
+
+def patch_dist_tile(vid: torch.Tensor, qt: torch.Tensor, qy: torch.Tensor,
+                    qx: torch.Tensor, dt_lo: int, n_dt: int, pt: int,
+                    ps: int, w_s: int, base_row: int, hp_g: int,
+                    wp_g: int) -> torch.Tensor:
+    """(n_dt, S, w_s*w_s) raw squared patch distances on a halo tile, +inf
+    out of the global frame: the plain version for a CPU video, the CUDA
+    kernel for a CUDA video."""
+    args = (vid, qt, qy, qx, dt_lo, n_dt, pt, ps, w_s, base_row, hp_g, wp_g)
+    if vid.device.type == "cpu":
+        return patch_dist_tile_plain(*args)
+    if vid.device.type == "cuda":
+        return patch_dist_tile_kernel(*args)
+    raise ValueError(f"unsupported device {vid.device}")
+
+
+patch_dist_tile.launches = 0

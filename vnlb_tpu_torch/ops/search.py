@@ -25,6 +25,14 @@ level from per-(dt, site) window starts.  The semantics kept exactly:
   ascending sort, as ``lax.top_k`` orders them); candidate indices at
   frame clip(t+dt, 0, T-pt), rows min(sy+a, H-ps), columns
   min(sx+b, W-ps); -1 where the value is inf.
+
+On a halo strip tile of the H-sharded pass (vnlb_tpu/ops/search.py:64-141,
+300-412) ``y_bounds`` = (first, last) GLOBAL frame row in tile coordinates
+replaces (0, H-1) in the level-0 centre, flow-lookup, window and corner
+clamps, and the coarse levels are the full-frame pooled levels (JAX's
+``coarse_global``, which every caller with bounds sets): the query and the
+centres shift to global rows before the first halving, and the full-frame
+clamps apply from there.
 """
 
 from __future__ import annotations
@@ -80,17 +88,20 @@ def _round_half_up(x: torch.Tensor) -> torch.Tensor:
 
 def track_centers(sites: torch.Tensor, fflow: torch.Tensor,
                   bflow: torch.Tensor, nwt_b: int, nwt_f: int,
-                  shape) -> torch.Tensor:
+                  shape, y_bounds=None) -> torch.Tensor:
     """Flow-tracked window centres: int32 (B, nwt_b+nwt_f+1, 2) = (cy, cx)
-    for dt = -nwt_b .. +nwt_f.  With zero flow every centre is the site."""
+    for dt = -nwt_b .. +nwt_f.  With zero flow every centre is the site.
+    ``y_bounds`` (y0, y1): the frame's first and last rows in this array's
+    coordinates (a halo tile's global bounds), (0, H-1) by default."""
     t_len, _, h, w = shape
+    y0, y1 = (0, h - 1) if y_bounds is None else y_bounds
     tq = sites[:, 0].long()
     cy0 = sites[:, 1].to(torch.float32)
     cx0 = sites[:, 2].to(torch.float32)
 
     def lookup(flow, f_idx, cy, cx):
         fi = f_idx.clamp(0, t_len - 1)
-        yi = _round_half_up(cy).clamp(0, h - 1).long()
+        yi = _round_half_up(cy).clamp(max(y0, 0), min(y1, h - 1)).long()
         xi = _round_half_up(cx).clamp(0, w - 1).long()
         return flow[fi, 0, yi, xi], flow[fi, 1, yi, xi]
 
@@ -98,7 +109,7 @@ def track_centers(sites: torch.Tensor, fflow: torch.Tensor,
         out, cy, cx = [], cy0, cx0
         for i in range(n):
             u, v = lookup(flow, tq + sign * i, cy, cx)
-            cy = (cy + v).clamp(0.0, h - 1.0)
+            cy = (cy + v).clamp(float(y0), float(y1))
             cx = (cx + u).clamp(0.0, w - 1.0)
             out.append((cy, cx))
         return out
@@ -111,12 +122,18 @@ def track_centers(sites: torch.Tensor, fflow: torch.Tensor,
 
 
 def _window_starts(centers: torch.Tensor, w_s: int, ps: int, h: int,
-                   w: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                   w: int, y_bounds=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sliding-window top-left corners clip(centre - half, 0, (H-ps) -
     (w_s-1)), so that all w_s candidates stay inside the frame (the lower
-    clip wins when the frame is smaller than the window)."""
+    clip wins when the frame is smaller than the window); rows between
+    ``y_bounds`` when given."""
     half = (w_s - 1) // 2
-    sy = (centers[..., 0] - half).clamp(0, max(h - ps - (w_s - 1), 0))
+    if y_bounds is None:
+        ylo, yhi = 0, max(h - ps - (w_s - 1), 0)
+    else:
+        ylo = y_bounds[0]
+        yhi = max(y_bounds[1] + 1 - ps - (w_s - 1), ylo)
+    sy = (centers[..., 0] - half).clamp(ylo, yhi)
     sx = (centers[..., 1] - half).clamp(0, max(w - ps - (w_s - 1), 0))
     return sy, sx
 
@@ -124,10 +141,12 @@ def _window_starts(centers: torch.Tensor, w_s: int, ps: int, h: int,
 def exec_search(video: torch.Tensor, sites: torch.Tensor,
                 fflow: torch.Tensor, bflow: torch.Tensor, cfg: StageConfig,
                 levels: Optional[List[torch.Tensor]] = None,
-                dist_fn: Callable = patch_dist
+                dist_fn: Callable = patch_dist, y_bounds=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-K gather search for ``sites`` (S, 3) of ``video`` (T, C, H, W)
-    along the flows ``fflow``/``bflow`` (T, 2, H, W).
+    along the flows ``fflow``/``bflow`` (T, 2, H, W).  On a halo tile,
+    ``y_bounds`` are the global frame rows in tile coordinates and
+    ``levels[1:]`` are full-frame levels.
 
     Returns (vals (S, K) f32 ascending, inds (S, K) int32 flat indices,
     -1 invalid).  ``levels`` reuses a pyramid from ``search_levels``;
@@ -153,7 +172,7 @@ def exec_search(video: torch.Tensor, sites: torch.Tensor,
     # only the statically valid offsets: a centre depends on the steps
     # before it only, so these equal JAX's centres sliced to [dt_lo, dt_hi]
     centers = track_centers(sites, fflow, bflow, -dt_lo, dt_hi,
-                            video.shape).long()
+                            video.shape, y_bounds).long()
     inv = inv_norm(cfg)
 
     ts, qy, qx = sites[:, 0], sites[:, 1], sites[:, 2]
@@ -161,11 +180,14 @@ def exec_search(video: torch.Tensor, sites: torch.Tensor,
     cand = starts0 = None
     for lvl, v_l in enumerate(levels):
         lh, lw = v_l.shape[2], v_l.shape[3]
+        if lvl == 1 and y_bounds is not None:
+            # full-frame coarse levels: global rows from here on
+            qy, cy = qy - y_bounds[0], cy - y_bounds[0]
         if lvl:
             qy, qx = (qy // 2).clamp(0, lh - ps), (qx // 2).clamp(max=lw - ps)
             cy, cx = (cy // 2).clamp(0, lh - 1), (cx // 2).clamp(max=lw - 1)
         sy, sx = _window_starts(torch.stack([cy, cx], dim=-1), w_s, ps, lh,
-                                lw)
+                                lw, y_bounds if lvl == 0 else None)
         if lvl == 0:
             starts0 = (sy, sx)
         raw = dist_fn(v_l, ts, qy, qx, dt_lo, n_dt, pt, ps, w_s,
@@ -186,7 +208,8 @@ def exec_search(video: torch.Tensor, sites: torch.Tensor,
 
     di, rem = sel // ws2, sel % ws2
     sy0, sx0 = (s.gather(1, di) for s in starts0)
-    y = (sy0 + rem // w_s).clamp(max=h - ps)
+    y = (sy0 + rem // w_s).clamp(
+        max=h - ps if y_bounds is None else y_bounds[1] + 1 - ps)
     x = (sx0 + rem % w_s).clamp(max=w - ps)
     fcl = (ts[:, None] + di + dt_lo).clamp(0, t_len - pt)
     inds = (fcl * (c_full * h * w) + y * w + x).to(torch.int32)

@@ -33,17 +33,24 @@ The semantics kept exactly:
   one-shot sort with an O(S*(K+w_s^2)) buffer.  ``topk="approx"`` is the
   exact top-K: ``lax.approx_max_k`` is exact on every backend but the TPU;
 * indices decode with the frame clipped, -1 where the value is inf.
+
+``exec_search_dense_tile`` (vnlb_tpu/ops/search_dense.py:342-498 and the
+all-rows ``_search_dense_halo``, vnlb_tpu/parallel/halo.py:100-177) is the
+same search on a halo strip tile of the H-sharded pass: level 0 on the
+tile in tile coordinates, the coarse needle levels on the full-frame pooled
+levels at the sites' global rows, +inf for candidates outside the GLOBAL
+frame, indices decoded in tile coordinates.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterator, List, Optional, Tuple
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..config import StageConfig
 from .dense_dist import dense_dist, frame_range
-from .patch_dist import patch_dist
+from .patch_dist import patch_dist, patch_dist_tile, tile_oob
 from .search import _apply_tau, eff_dt_range, inv_norm, search_levels
 
 # sites per sort of the exact top-K (bounds the sort's scratch)
@@ -70,28 +77,29 @@ def _round(raw: torch.Tensor, cfg: StageConfig, inv: float) -> torch.Tensor:
     return raw * inv
 
 
-def _site_planes(levels, sites, cfg, dt_lo, n_dt, dist_fn) -> torch.Tensor:
-    """(n_dt, S, ws2) level sums from K1's per-site distances."""
+def _site_planes(levels, queries, cfg, dt_lo, n_dt, dist_fn,
+                 dist0=None) -> torch.Tensor:
+    """(n_dt, S, ws2) level sums from K1's per-site distances at each
+    level's queries (qt, qy, qx); ``dist0`` computes level 0 instead of
+    ``dist_fn`` when given (the tile entry)."""
     inv = inv_norm(cfg)
     cand = None                                        # (n_dt, S, ws2)
-    for lvl, v_l in enumerate(levels):
-        qt, qy, qx = level_queries(sites, lvl, v_l.shape[2], v_l.shape[3],
-                                   cfg)
-        part = _round(dist_fn(v_l, qt, qy, qx, dt_lo, n_dt, cfg.pt, cfg.ps,
-                              cfg.w_s), cfg, inv)
+    for lvl, (v_l, (qt, qy, qx)) in enumerate(zip(levels, queries)):
+        fn = dist0 if lvl == 0 and dist0 is not None else dist_fn
+        part = _round(fn(v_l, qt, qy, qx, dt_lo, n_dt, cfg.pt, cfg.ps,
+                         cfg.w_s), cfg, inv)
         cand = part if cand is None else cand + part
     return cand
 
 
-def _full_planes(levels, sites, cfg, dt_lo, n_dt, dense_fn
+def _full_planes(levels, queries, cfg, dt_lo, n_dt, dense_fn
                  ) -> Iterator[torch.Tensor]:
-    """Per-dt (S, ws2) level sums taken from K3's all-pixel planes, one
-    (level, dt) plane alive at a time.  Sites whose frame has no candidate
-    frame at this dt read a valid row; the caller masks them +inf."""
+    """Per-dt (S, ws2) level sums taken from K3's all-pixel planes at each
+    level's queries (qt, qy, qx), one (level, dt) plane alive at a time.
+    Sites whose frame has no candidate frame at this dt read a valid row;
+    the caller masks them +inf."""
     inv = inv_norm(cfg)
     t_len = levels[0].shape[0]
-    queries = [level_queries(sites, lvl, v.shape[2], v.shape[3], cfg)
-               for lvl, v in enumerate(levels)]
     for dt in range(dt_lo, dt_lo + n_dt):
         f_lo, f_hi = frame_range(t_len, cfg.pt, dt)
         cand = None
@@ -142,6 +150,74 @@ def _stream_topk(planes: Iterator[torch.Tensor], k: int, ws2: int):
     return run_v, run_s
 
 
+def _select(planes, cfg: StageConfig, s_cnt: int, n_dt: int, ws2: int,
+            per_dt: bool):
+    """Top-K of the masked candidates: ``planes`` is (n_dt, S, ws2), or an
+    iterator of per-dt (S, ws2) planes when ``per_dt``.  Returns (vals,
+    sel) with sel the position in enumeration order (dt, dy, dx)."""
+    k = cfg.npatches
+    if cfg.topk == "stream" and ws2 >= k:
+        return _stream_topk(planes, k, ws2)
+    if per_dt:
+        flat = None
+        for di, cand in enumerate(planes):
+            if flat is None:
+                flat = torch.empty((s_cnt, n_dt, ws2), dtype=torch.float32,
+                                   device=cand.device)
+            flat[:, di] = cand
+    else:
+        flat = planes.permute(1, 0, 2)
+    return _sorted_topk(flat.reshape(s_cnt, n_dt * ws2), k)
+
+
+def _decode(vals, sel, sites, cfg: StageConfig, dt_lo: int, shape):
+    """Flat indices t*C*H*W + y*W + x of the selected candidates of
+    ``sites`` in a (T, C, H, W) video (frame clipped), -1 where the value is
+    inf, then the similarity threshold."""
+    t_len, c_full, h, w = shape
+    ws2 = cfg.w_s * cfg.w_s
+    half = (cfg.w_s - 1) // 2
+    ts, ys, xs = sites[:, 0], sites[:, 1], sites[:, 2]
+    dt_i = sel // ws2 + dt_lo
+    rem = sel % ws2
+    fcl = torch.clamp(ts[:, None] + dt_i, 0, t_len - cfg.pt)
+    y = ys[:, None] - half + rem // cfg.w_s
+    x = xs[:, None] - half + rem % cfg.w_s
+    inds = (fcl * (c_full * h * w) + y * w + x).to(torch.int32)
+    inds = torch.where(torch.isinf(vals), torch.full_like(inds, -1), inds)
+    return vals, _apply_tau(vals, inds, cfg)
+
+
+def _masker(sites, cfg: StageConfig, t_len: int, dt_lo: int, n_dt: int,
+            oob: Optional[torch.Tensor]):
+    """(mask, valid): ``mask(cand, ok)`` subtracts the offset and adds +inf
+    where ``ok`` (the leading dims of ``cand``) is False and where ``oob``
+    (S, ws2) is True -- additions, so x + 0 stays x; ``valid`` (n_dt, S)
+    says which (dt, site) have a candidate frame."""
+    dev = sites.device
+    f = sites[None, :, 0] + torch.arange(dt_lo, dt_lo + n_dt,
+                                          device=dev)[:, None]
+    valid = (f >= 0) & (f <= t_len - cfg.pt)
+    inf = torch.tensor(float("inf"), device=dev)
+    zero = torch.zeros((), device=dev)
+    add = None if oob is None else torch.where(oob, inf, zero)
+
+    def mask(cand, ok):
+        cand = cand - cfg.offset + torch.where(ok, zero, inf)[..., None]
+        return cand if add is None else cand + add
+
+    return mask, valid
+
+
+def _dt_span(cfg: StageConfig, t_len: int):
+    dt_lo, dt_hi = eff_dt_range(cfg, t_len)
+    n_dt = dt_hi - dt_lo + 1
+    if n_dt * cfg.w_s * cfg.w_s < cfg.npatches:
+        raise ValueError(f"{n_dt * cfg.w_s * cfg.w_s} candidates < "
+                         f"K={cfg.npatches}")
+    return dt_lo, n_dt
+
+
 def exec_search_dense(video: torch.Tensor, sites: torch.Tensor,
                       cfg: StageConfig,
                       levels: Optional[List[torch.Tensor]] = None,
@@ -157,65 +233,101 @@ def exec_search_dense(video: torch.Tensor, sites: torch.Tensor,
     device-dispatching wrappers by default; the tests and the on-card
     comparison pass the plain ones).
     """
-    t_len, c_full, h, w = video.shape
-    k = cfg.npatches
-    ps, pt, w_s = cfg.ps, cfg.pt, cfg.w_s
+    t_len, _, h, w = video.shape
+    ps, w_s = cfg.ps, cfg.w_s
     half = (w_s - 1) // 2
     ws2 = w_s * w_s
     s_cnt = sites.shape[0]
-    dt_lo, dt_hi = eff_dt_range(cfg, t_len)
-    n_dt = dt_hi - dt_lo + 1
-    if n_dt * ws2 < k:
-        raise ValueError(f"{n_dt * ws2} candidates < K={k}")
+    dt_lo, n_dt = _dt_span(cfg, t_len)
     if levels is None:
         levels = search_levels(video, cfg)
-    dev = video.device
-    sites = sites.to(device=dev, dtype=torch.int64)
-    ts, ys, xs = sites[:, 0], sites[:, 1], sites[:, 2]
-    f = ts[None, :] + torch.arange(dt_lo, dt_hi + 1, device=dev)[:, None]
-    valid = (f >= 0) & (f <= t_len - pt)               # (n_dt, S)
-    inf = torch.tensor(float("inf"), device=dev)
-    zero = torch.zeros((), device=dev)
+    sites = sites.to(device=video.device, dtype=torch.int64)
     oob = None
     if cfg.border_mode == "mask":
-        dgrid = torch.arange(w_s, device=dev)
-        cy = ys[:, None, None] - half + dgrid[None, :, None]
-        cx = xs[:, None, None] - half + dgrid[None, None, :]
-        bad = (cy < 0) | (cy > h - ps) | (cx < 0) | (cx > w - ps)
-        oob = torch.where(bad, inf, zero).reshape(s_cnt, ws2)
+        dgrid = torch.arange(w_s, device=video.device)
+        cy = sites[:, 1, None, None] - half + dgrid[None, :, None]
+        cx = sites[:, 2, None, None] - half + dgrid[None, None, :]
+        oob = ((cy < 0) | (cy > h - ps) | (cx < 0)
+               | (cx > w - ps)).reshape(s_cnt, ws2)
+    mask, valid = _masker(sites, cfg, t_len, dt_lo, n_dt, oob)
 
-    def mask(cand, ok):
-        """-offset, +inf where ``ok`` (the leading dims of ``cand``) is
-        False, +inf out of bounds: additions, so x + 0 stays x."""
-        cand = cand - cfg.offset + torch.where(ok, zero, inf)[..., None]
-        return cand if oob is None else cand + oob
-
-    if cfg.dense_rows == "full":
+    queries = [level_queries(sites, lvl, v.shape[2], v.shape[3], cfg)
+               for lvl, v in enumerate(levels)]
+    full = cfg.dense_rows == "full"
+    if full:
         # one (level, dt) plane at a time; per-dt candidates
         planes = (mask(cand, valid[di]) for di, cand in enumerate(
-            _full_planes(levels, sites, cfg, dt_lo, n_dt, dense_fn)))
+            _full_planes(levels, queries, cfg, dt_lo, n_dt, dense_fn)))
     else:
-        planes = mask(_site_planes(levels, sites, cfg, dt_lo, n_dt, dist_fn),
-                      valid)                           # (n_dt, S, ws2)
-    if cfg.topk == "stream" and ws2 >= k:
-        vals, sel = _stream_topk(planes, k, ws2)
-    else:
-        # (S, n_dt*ws2) in enumeration order (dt, dy, dx)
-        if cfg.dense_rows == "full":
-            flat = torch.empty((s_cnt, n_dt, ws2), dtype=torch.float32,
-                               device=dev)
-            for di, cand in enumerate(planes):
-                flat[:, di] = cand
-        else:
-            flat = planes.permute(1, 0, 2)
-        vals, sel = _sorted_topk(flat.reshape(s_cnt, n_dt * ws2), k)
-        del flat, planes
+        planes = mask(_site_planes(levels, queries, cfg, dt_lo, n_dt,
+                                   dist_fn), valid)    # (n_dt, S, ws2)
+    vals, sel = _select(planes, cfg, s_cnt, n_dt, ws2, full)
+    del planes
+    return _decode(vals, sel, sites, cfg, dt_lo, video.shape)
 
-    dt_i = sel // ws2 + dt_lo
-    rem = sel % ws2
-    fcl = torch.clamp(ts[:, None] + dt_i, 0, t_len - pt)
-    y = ys[:, None] - half + rem // w_s
-    x = xs[:, None] - half + rem % w_s
-    inds = (fcl * (c_full * h * w) + y * w + x).to(torch.int32)
-    inds = torch.where(torch.isinf(vals), torch.full_like(inds, -1), inds)
-    return vals, _apply_tau(vals, inds, cfg)
+
+def tile_search_mode(cfg: StageConfig) -> str:
+    """The halo tile's dense search (vnlb_tpu/parallel/halo.py:404-408):
+    "rows" (K1's tile entry at the lattice sites) for the exact top-K with
+    lattice rows, else "full" (K3 planes of every tile row, JAX's all-rows
+    ``_search_dense_halo``)."""
+    return ("rows" if cfg.dense_rows != "full" and cfg.topk == "exact"
+            else "full")
+
+
+def exec_search_dense_tile(tile: torch.Tensor, sites: torch.Tensor,
+                           gy: torch.Tensor, cfg: StageConfig, base_row: int,
+                           hp_g: int, coarse: Sequence[torch.Tensor] = (),
+                           dist_fn: Callable = patch_dist,
+                           tile_fn: Callable = patch_dist_tile,
+                           dense_fn: Callable = dense_dist
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zero-flow top-K search on a halo strip tile, with the global frame's
+    out-of-bounds mask.
+
+    tile:     (T, C, Ht, W) search tile (YUV); row 0 is global row
+              ``base_row`` (negative on the first strip).
+    sites:    (S, 3) lattice sites in tile coordinates.
+    gy:       (S,) global rows of the sites (the coarse levels' anchors).
+    hp_g:     global H - ps + 1 of the (padded) frame.
+    coarse:   the full-frame pooled needle levels 1, 2, ... (searched
+              channels only).
+
+    ``tile_search_mode(cfg)`` "rows": level 0 by K1's tile entry
+    (``tile_fn``), the coarse levels by K1 (``dist_fn``) at the global
+    queries clamped as in ``exec_search_dense``.  "full": K3 planes
+    (``dense_fn``) of the tile and the coarse levels with no bf16 rounding,
+    as JAX's ``_search_dense_halo``.  Returns (vals, inds) with inds in
+    TILE flat coordinates t*(C*Ht*W) + y_t*W + x.
+    """
+    t_len, _, _, w = tile.shape
+    ps, w_s = cfg.ps, cfg.w_s
+    ws2 = w_s * w_s
+    wp = w - ps + 1
+    s_cnt = sites.shape[0]
+    dt_lo, n_dt = _dt_span(cfg, t_len)
+    dev = tile.device
+    sites = sites.to(device=dev, dtype=torch.int64)
+    gy = gy.to(device=dev, dtype=torch.int64)
+    levels = [tile[:, :cfg.dist_chnls].contiguous()] + list(coarse)
+    sites_g = torch.stack([sites[:, 0], gy, sites[:, 2]], dim=1)
+    queries = [level_queries(sites if lvl == 0 else sites_g, lvl,
+                             v.shape[2], v.shape[3], cfg)
+               for lvl, v in enumerate(levels)]
+
+    if tile_search_mode(cfg) == "rows":
+        mask, valid = _masker(sites, cfg, t_len, dt_lo, n_dt, None)
+        planes = mask(_site_planes(
+            levels, queries, cfg, dt_lo, n_dt, dist_fn,
+            dist0=lambda *a: tile_fn(*a, base_row, hp_g, wp)), valid)
+        full = False
+    else:
+        oob = tile_oob(sites[:, 1], sites[:, 2], w_s, base_row, hp_g, wp)
+        mask, valid = _masker(sites, cfg, t_len, dt_lo, n_dt, oob)
+        planes = (mask(cand, valid[di]) for di, cand in enumerate(
+            _full_planes(levels, queries, cfg.replace(search_bf16=False),
+                         dt_lo, n_dt, dense_fn)))
+        full = True
+    vals, sel = _select(planes, cfg, s_cnt, n_dt, ws2, full)
+    del planes
+    return _decode(vals, sel, sites, cfg, dt_lo, tile.shape)

@@ -20,7 +20,7 @@ all site batches.  The pass is deterministic.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -31,7 +31,8 @@ from .ops.bayes import ave_denoise, bayes_denoise
 from .ops.dense_dist import dense_dist, dense_dist_plain
 from .ops.econ_filter import econ_filter, econ_filter_plain
 from .ops.mask import interior_split, lattice_sites
-from .ops.patch_dist import patch_dist, patch_dist_plain
+from .ops.patch_dist import (patch_dist, patch_dist_plain, patch_dist_tile,
+                             patch_dist_tile_plain)
 from .ops.patch_gather import patch_gather, patch_gather_plain
 from .ops.poly_filter import poly_filter, poly_filter_plain
 from .ops.search import exec_search, search_levels
@@ -51,16 +52,18 @@ class Kernels(NamedTuple):
     patch_gather: object
     poly_filter: object
     dense_dist: object
+    patch_dist_tile: object
 
 
 # the device-dispatching wrappers (kernels on CUDA, plain versions on CPU)
 KERNELS = Kernels(patch_dist=patch_dist, econ_filter=econ_filter,
                   patch_gather=patch_gather, poly_filter=poly_filter,
-                  dense_dist=dense_dist)
+                  dense_dist=dense_dist, patch_dist_tile=patch_dist_tile)
 # the plain PyTorch versions on any device (on-card comparison)
 PLAIN = Kernels(patch_dist=patch_dist_plain, econ_filter=econ_filter_plain,
                 patch_gather=patch_gather_plain,
-                poly_filter=poly_filter_plain, dense_dist=dense_dist_plain)
+                poly_filter=poly_filter_plain, dense_dist=dense_dist_plain,
+                patch_dist_tile=patch_dist_tile_plain)
 
 
 def check_supported(cfg: StageConfig) -> None:
@@ -109,23 +112,44 @@ def plan_sites(shape, cfg: StageConfig, zero_flow: bool, t_origin: int = 0):
 def accumulate(noisy_yuv: torch.Tensor, basic_yuv: torch.Tensor,
                srch_yuv: torch.Tensor, fflow: torch.Tensor,
                bflow: torch.Tensor, sites: torch.Tensor, n_dense: int,
-               cfg: StageConfig, kernels: Kernels = KERNELS):
+               cfg: StageConfig, kernels: Kernels = KERNELS,
+               dense_search: Optional[Callable] = None,
+               whole_dense: Optional[bool] = None, y_bounds=None,
+               coarse: Optional[Sequence[torch.Tensor]] = None):
     """All sites -> image-space (deno (T, C, H, W), weights (T, H, W))
-    accumulators, un-normalized.  Chunks never mix the dense and the
-    gather sites."""
+    accumulators over the shape of ``noisy_yuv``, un-normalized.  Chunks
+    never mix the dense and the gather sites.
+
+    The halo strip program (parallel/halo.py) runs this on a tile:
+    ``dense_search(s0, s1) -> (vals, inds)`` searches dense sites [s0, s1)
+    (default: ``exec_search_dense`` of ``srch_yuv``); ``whole_dense`` runs
+    it once over all dense sites before the accumulator exists (default:
+    under ``dense_rows="full"``, whose planes every site shares);
+    ``y_bounds`` (the global row bounds in tile coordinates) goes to the
+    gather search, and ``coarse`` (full-frame pooled levels, searched
+    channels) replaces the pyramid of ``srch_yuv`` above level 0."""
     shape = tuple(noisy_yuv.shape)
     t_len, c, h, w = shape
     hp, wp = h - cfg.ps + 1, w - cfg.ps + 1
     d = c * cfg.ps * cfg.ps
     dev = noisy_yuv.device
-    levels = search_levels(srch_yuv, cfg)
+    if coarse is None:
+        levels = search_levels(srch_yuv, cfg)
+    else:
+        levels = [srch_yuv[:, :cfg.dist_chnls].contiguous(), *coarse]
+    if dense_search is None:
+        def dense_search(s0, s1):
+            return exec_search_dense(srch_yuv, sites[s0:s1], cfg,
+                                     levels=levels,
+                                     dist_fn=kernels.patch_dist,
+                                     dense_fn=kernels.dense_dist)
+    if whole_dense is None:
+        whole_dense = cfg.dense_rows == "full"
     dense = None
-    if n_dense and cfg.dense_rows == "full":
+    if n_dense and whole_dense:
         # before the accumulator exists: the search's planes and candidate
         # buffer are the pass's largest temporaries
-        _, dense = exec_search_dense(srch_yuv, sites[:n_dense], cfg,
-                                     levels=levels,
-                                     dense_fn=kernels.dense_dist)
+        _, dense = dense_search(0, n_dense)
     acc = torch.zeros((t_len * hp * wp, cfg.pt * d + 1), dtype=torch.float32,
                       device=dev)
     ka = (cfg.agg_k if cfg.agg_k and cfg.agg_k < cfg.npatches
@@ -141,13 +165,12 @@ def accumulate(noisy_yuv: torch.Tensor, basic_yuv: torch.Tensor,
         if s0 < n_dense and dense is not None:
             inds = dense[s0:s1]
         elif s0 < n_dense:
-            vals, inds = exec_search_dense(srch_yuv, chunk, cfg,
-                                           levels=levels,
-                                           dist_fn=kernels.patch_dist)
+            vals, inds = dense_search(s0, s1)
         else:
             vals, inds = exec_search(srch_yuv, chunk, fflow, bflow, cfg,
                                      levels=levels,
-                                     dist_fn=kernels.patch_dist)
+                                     dist_fn=kernels.patch_dist,
+                                     y_bounds=y_bounds)
         if cfg.deno == "ave":
             (pnoisy,) = kernels.patch_gather([noisy_yuv], inds, cfg.ps,
                                              cfg.pt, cfg.cols_bf16)
@@ -191,16 +214,12 @@ def _as_flow(flow, shape, device) -> torch.Tensor:
     return flow
 
 
-def proc_nl(noisy: torch.Tensor, basic: Optional[torch.Tensor],
+def prepare(noisy: torch.Tensor, basic: Optional[torch.Tensor],
             clean: Optional[torch.Tensor], fflow, bflow, cfg: StageConfig,
-            zero_flow: Optional[bool] = None, t_origin: int = 0,
-            kernels: Kernels = KERNELS) -> torch.Tensor:
-    """One pass: RGB (T, C, H, W) in, RGB denoised out, on the device of
-    ``noisy``.  ``fflow``/``bflow`` are (T, 2, H, W) flows (None: zero).
-    ``zero_flow`` selects the dense search for the planned sites; when
-    None it is detected from the flow values.  ``t_origin`` is the global
-    index of frame 0 (streaming windows align their lattices with the
-    whole clip's)."""
+            zero_flow: Optional[bool] = None):
+    """A pass's inputs on the device of ``noisy``: (noisy_yuv, basic_yuv,
+    srch_yuv, fflow, bflow, zero_flow), after the config and size
+    checks."""
     check_supported(cfg)
     noisy = noisy.to(torch.float32)
     shape = tuple(int(s) for s in noisy.shape)
@@ -226,9 +245,33 @@ def proc_nl(noisy: torch.Tensor, basic: Optional[torch.Tensor],
                              else clean.to(torch.float32))
     else:
         raise ValueError(f"unknown srch_img [{cfg.srch_img}]")
-    sites, n_dense = plan_sites(shape, cfg, zero_flow, t_origin)
-    sites = torch.as_tensor(sites, device=noisy.device)
-    deno_img, wts_img = accumulate(noisy_yuv, basic_yuv, srch, fflow, bflow,
-                                   sites, n_dense, cfg, kernels)
+    return noisy_yuv, basic_yuv, srch, fflow, bflow, zero_flow
+
+
+def finish(deno_img: torch.Tensor, wts_img: torch.Tensor,
+           noisy_yuv: torch.Tensor, basic_yuv: torch.Tensor,
+           cfg: StageConfig) -> torch.Tensor:
+    """Normalized accumulators (the fallback image where no patch landed)
+    -> RGB."""
     fallback = basic_yuv if cfg.step == 1 else noisy_yuv
     return color.yuv2rgb(agg.finalize_img(deno_img, wts_img, fallback))
+
+
+def proc_nl(noisy: torch.Tensor, basic: Optional[torch.Tensor],
+            clean: Optional[torch.Tensor], fflow, bflow, cfg: StageConfig,
+            zero_flow: Optional[bool] = None, t_origin: int = 0,
+            kernels: Kernels = KERNELS) -> torch.Tensor:
+    """One pass: RGB (T, C, H, W) in, RGB denoised out, on the device of
+    ``noisy``.  ``fflow``/``bflow`` are (T, 2, H, W) flows (None: zero).
+    ``zero_flow`` selects the dense search for the planned sites; when
+    None it is detected from the flow values.  ``t_origin`` is the global
+    index of frame 0 (streaming windows align their lattices with the
+    whole clip's)."""
+    noisy_yuv, basic_yuv, srch, fflow, bflow, zero_flow = prepare(
+        noisy, basic, clean, fflow, bflow, cfg, zero_flow)
+    shape = tuple(noisy_yuv.shape)
+    sites, n_dense = plan_sites(shape, cfg, zero_flow, t_origin)
+    sites = torch.as_tensor(sites, device=noisy_yuv.device)
+    deno_img, wts_img = accumulate(noisy_yuv, basic_yuv, srch, fflow, bflow,
+                                   sites, n_dense, cfg, kernels)
+    return finish(deno_img, wts_img, noisy_yuv, basic_yuv, cfg)

@@ -83,6 +83,8 @@ STREAM_CFG = dict(nwt_f=2, nwt_b=2, dense_rows="full", topk="stream")
 # (one card) and in a 2-rank world; its streaming run, 12 frames in chunks
 # of 4, nwt 2
 HALO_CFG = dict(border_mode="mask")
+# the halo tile's all-rows branch (K3 planes of each tile)
+HALO_ALL_ROWS = dict(dense_rows="full", topk="stream")
 HALO_STREAM_T, HALO_STREAM_CFG = 12, dict(nwt_f=2, nwt_b=2,
                                           border_mode="mask")
 # H100 SXM data-sheet peaks: f32 on CUDA cores, bf16 on tensor cores (a
@@ -360,6 +362,54 @@ def k1_tile_phase(yuv, shape, dev):
     return err, record
 
 
+def tile_full_phase(yuv, shape, dev):
+    """The halo tile's all-rows search (``exec_search_dense_tile`` under
+    HALO_ALL_ROWS: K3 planes of the tile and of the full-frame coarse
+    levels, no bf16 rounding) against its plain version, stage 0, the first
+    4096 sites of strip 0 and the last 4096 of strip 3 of the 4-strip
+    split, one K3 launch per (level, dt): the f32 rounding of the
+    distances, |d| <= 1e-5 (q2 + b2) + 1e-3 per level in raw units, with
+    (q2 + b2) / norm <= 2."""
+    import vnlb_tpu_torch as vt
+    from vnlb_tpu_torch.ops.dense_dist import dense_dist
+    from vnlb_tpu_torch.ops.search import eff_dt_range
+    from vnlb_tpu_torch.ops.search_dense import exec_search_dense_tile
+    from vnlb_tpu_torch.parallel.halo import (_coarse, _plan_strip_sites,
+                                              _strip_geometry)
+
+    scfg = vt.default_config(SIGMA, **HALO_CFG, **HALO_ALL_ROWS).stage(0)
+    halo, hs, h_run = _strip_geometry(shape, scfg, 4)
+    coarse = _coarse(yuv, scfg, hs)
+    dt_lo, dt_hi = eff_dt_range(scfg, shape[0])
+    planes = (1 + len(coarse)) * (dt_hi - dt_lo + 1)
+    plain = dict(dist_fn=vt.PLAIN.patch_dist,
+                 tile_fn=vt.PLAIN.patch_dist_tile,
+                 dense_fn=vt.PLAIN.dense_dist)
+    hp_g = h_run - scfg.ps + 1
+    norm = scfg.pt * scfg.dist_chnls * scfg.ps ** 2 * 255.0 ** 2
+    tol = (1 + len(coarse)) * (2e-5 + 1e-3 / norm)
+    for strip in (0, 3):
+        sites, gy = _plan_strip_sites(shape, scfg, 4, halo, strip)
+        part = slice(-4096, None) if strip == 3 else slice(0, 4096)
+        sites = torch.from_numpy(sites[part]).to(dev)
+        gy = torch.from_numpy(gy[part]).to(dev)
+        tile = strip_tile(yuv, strip, hs, halo)
+        args = (tile, sites, gy, scfg, strip * hs - halo, hp_g, coarse)
+        dense_dist.launches = 0
+        vk, ik = exec_search_dense_tile(*args)
+        launched = dense_dist.launches
+        vp, ip = exec_search_dense_tile(*args, **plain)
+        if launched != planes or dense_dist.launches != launched:
+            raise AssertionError(f"tile_full strip {strip}: K3 launches "
+                                 f"{launched}, plain run "
+                                 f"{dense_dist.launches - launched}")
+        agree = tie_aware(f"tile_full strip {strip}", vk, ik, vp, ip, tol)
+        log("tile_full", stage=0, strip=strip, sites=sites.shape[0],
+            tile=f"{tile.shape[2]}x{tile.shape[3]}", levels=1 + len(coarse),
+            k3_launches=launched, value_tol=f"{tol:.3g}",
+            index_agreement=f"{agree:.4f}")
+
+
 def halo_strips_phase(vt, noisy, clean, dev, counters, mono):
     """strip_runner over the four strips of both passes, then
     combine_strips, against the one-card pass under mask borders
@@ -450,12 +500,28 @@ def halo_strips_phase(vt, noisy, clean, dev, counters, mono):
     return launches
 
 
+# the kernels each program of the 2-rank world must launch on every rank
+# (the others must not)
+WORLD_EXPECT = {
+    "denoise_halo": {"patch_dist_tile", "patch_dist", "econ_filter",
+                     "patch_gather"},
+    "flow_halo": {"patch_dist", "econ_filter", "patch_gather"},
+    "all_rows_halo": {"dense_dist", "econ_filter", "patch_gather"},
+    "denoise_sharded": {"patch_dist", "econ_filter", "patch_gather"},
+    "streaming_mesh": {"patch_dist_tile", "patch_dist", "econ_filter",
+                       "patch_gather"},
+}
+
+
 def halo_world_phase(vt, noisy, clean, dev, drift, mono):
     """A 2-rank gloo world on the one card: denoise_halo bitwise against
     the 2-strip composition, proc_nl_halo with the drift flow against the
-    one-card flow pass, denoise_sharded against the mask-border denoise
-    (``mono``), denoise_streaming(mesh=...) of a 12-frame clip against the
-    one-card streaming."""
+    one-card flow pass, the all-rows tile branch (dense_rows="full",
+    topk="stream", stage 0: K3 on the tiles, no bf16 rounding) against the
+    one-card pass without the rounding, denoise_sharded against the
+    mask-border denoise (``mono``), denoise_streaming(mesh=...) of a
+    12-frame clip against the one-card streaming.  Every rank's launches of
+    every program are checked against WORLD_EXPECT."""
     from vnlb_tpu_torch.parallel.halo import (combine_strips, denoise_halo,
                                               proc_nl_halo, strip_runner)
     from vnlb_tpu_torch.parallel.launch import run_world, sequence
@@ -468,22 +534,34 @@ def halo_world_phase(vt, noisy, clean, dev, drift, mono):
     s_clean = synthetic_video(HALO_STREAM_T, H, W, seed=0)
     s_noisy = add_noise(s_clean, SIGMA, seed=1)
     s_cfg = vt.default_config(SIGMA, **HALO_STREAM_CFG)
-    calls = [(denoise_halo, (noisy, SIGMA), dict(cfg=cfg)),
-             (proc_nl_halo, (noisy, None, ff, bf,
-                             vt.default_config(SIGMA).stage(0)), {}),
-             (denoise_sharded, (noisy, SIGMA), dict(cfg=cfg)),
-             (vt.denoise_streaming, (s_noisy, SIGMA),
-              dict(chunk=STREAM_CHUNK, cfg=s_cfg))]
+    full_cfg = vt.default_config(SIGMA, **HALO_CFG, **HALO_ALL_ROWS).stage(0)
+    calls = {
+        "denoise_halo": (denoise_halo, (noisy, SIGMA), dict(cfg=cfg)),
+        "flow_halo": (proc_nl_halo, (noisy, None, ff, bf,
+                                     vt.default_config(SIGMA).stage(0)), {}),
+        "all_rows_halo": (proc_nl_halo, (noisy, None, None, None, full_cfg),
+                          {}),
+        "denoise_sharded": (denoise_sharded, (noisy, SIGMA), dict(cfg=cfg)),
+        "streaming_mesh": (vt.denoise_streaming, (s_noisy, SIGMA),
+                           dict(chunk=STREAM_CHUNK, cfg=s_cfg)),
+    }
     t0 = time.perf_counter()
     # the ranks at this process's torch threads: on the host the plain
     # versions' batched products round with the thread count
-    ranks = run_world(sequence, 2, args=(calls,), device=str(dev),
-                      threads=torch.get_num_threads())
+    ranks = run_world(sequence, 2, args=(list(calls.values()),),
+                      device=str(dev), threads=torch.get_num_threads())
     world_s = time.perf_counter() - t0
-    (halo_out, halo_s), (flow_out, flow_s), (sh_out, sh_s), \
-        (st_out, st_s) = ranks[0]
+    for rank, outs in enumerate(ranks):
+        for name, (_, _, launches) in zip(calls, outs):
+            log("halo_world_launches", rank=rank, program=name, **launches)
+            if any((n > 0) != (k in WORLD_EXPECT[name])
+                   for k, n in launches.items()):
+                raise AssertionError(f"halo_world {name} rank {rank}: "
+                                     f"launches {launches}, expected "
+                                     f"{sorted(WORLD_EXPECT[name])}")
+    out = {name: o for name, o in zip(calls, ranks[0])}
     for r in ranks[1:]:
-        for (a, _), (b, _) in zip(ranks[0], r):
+        for (a, _, _), (b, _, _) in zip(ranks[0], r):
             a = a if isinstance(a, tuple) else (a,)
             b = b if isinstance(b, tuple) else (b,)
             if not all(np.array_equal(x, y) for x, y in zip(a[:2], b[:2])):
@@ -502,32 +580,43 @@ def halo_world_phase(vt, noisy, clean, dev, drift, mono):
         if stage == 0:
             basic = basic_or_deno
     comp = (basic_or_deno.cpu().numpy(), basic.cpu().numpy())
-    if not all(np.array_equal(a, b) for a, b in zip(halo_out, comp)):
+    if not all(np.array_equal(a, b)
+               for a, b in zip(out["denoise_halo"][0], comp)):
         raise AssertionError("halo_world: denoise_halo is not bitwise equal "
                              "to the 2-strip composition")
-    flow_ref = vt.proc_nl(torch.from_numpy(noisy).to(dev), None, None,
-                          torch.from_numpy(ff).to(dev),
+    noisy_t = torch.from_numpy(noisy).to(dev)
+    flow_ref = vt.proc_nl(noisy_t, None, None, torch.from_numpy(ff).to(dev),
                           torch.from_numpy(bf).to(dev),
                           vt.default_config(SIGMA).stage(0)).cpu().numpy()
-    flow_err = assert_close("halo_world flow", flow_out, flow_ref)
+    flow_err = assert_close("halo_world flow", out["flow_halo"][0], flow_ref)
+    full_ref = vt.proc_nl(noisy_t, None, None, None, None,
+                          full_cfg.replace(search_bf16=False)).cpu().numpy()
+    full_err = assert_close("halo_world all rows", out["all_rows_halo"][0],
+                            full_ref)
     m_deno, m_basic = (x.cpu().numpy() for x in mono)
+    sh_out = out["denoise_sharded"][0]
     sh_err = [assert_close(f"halo_world sharded {n}", g, w)
               for n, g, w in (("deno", sh_out[0], m_deno),
                               ("basic", sh_out[1], m_basic))]
     t1 = time.perf_counter()
     sd, sb, one_s = vt.denoise_streaming(s_noisy, SIGMA, chunk=STREAM_CHUNK,
                                          cfg=s_cfg, device=dev)
+    st_out = out["streaming_mesh"][0]
     st_err = [assert_close(f"halo_world streaming {n}", g, w)
               for n, g, w in (("deno", st_out[0], sd),
                               ("basic", st_out[1], sb))]
     log("halo_world", ranks=2, backend="gloo", device=str(dev),
-        world_seconds=f"{world_s:.2f}", denoise_halo_s=f"{halo_s:.3f}",
+        world_seconds=f"{world_s:.2f}",
+        denoise_halo_s=f"{out['denoise_halo'][1]:.3f}",
         bitwise_equal_2_strip_composition=True,
-        flow_halo_s=f"{flow_s:.3f}",
+        flow_halo_s=f"{out['flow_halo'][1]:.3f}",
         flow_max_mean=f"{flow_err[0]:.4g}/{flow_err[1]:.4g}",
-        sharded_s=f"{sh_s:.3f}",
+        all_rows_halo_s=f"{out['all_rows_halo'][1]:.3f}",
+        all_rows_max_mean=f"{full_err[0]:.4g}/{full_err[1]:.4g}",
+        sharded_s=f"{out['denoise_sharded'][1]:.3f}",
         sharded_deno_max_mean=f"{sh_err[0][0]:.4g}/{sh_err[0][1]:.4g}",
-        streaming_mesh_s=f"{st_s:.3f}", streaming_one_card_s=f"{one_s:.3f}",
+        streaming_mesh_s=f"{out['streaming_mesh'][1]:.3f}",
+        streaming_one_card_s=f"{one_s:.3f}",
         streaming_deno_max_mean=f"{st_err[0][0]:.4g}/{st_err[0][1]:.4g}",
         reference_s=f"{time.perf_counter() - t1:.2f}")
 
@@ -919,6 +1008,7 @@ def main():
     # runner over 4 strips, a 2-rank gloo world on this card ----
     k1t_err, (k1t_ms, k1t_pms, (k1t_bms, k1t_by)) = k1_tile_phase(yuv, shape,
                                                                   dev)
+    tile_full_phase(yuv, shape, dev)
     torch.cuda.empty_cache()
     halo_cfg = vt.default_config(SIGMA, **HALO_CFG)
     vt.denoise(noisy, SIGMA, cfg=halo_cfg, device=dev)

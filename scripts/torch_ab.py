@@ -2,12 +2,12 @@
 """Time the port's earlier 480p paths from one copy of ``vnlb_tpu_torch``,
 for parent/change comparisons on one CUDA card.
 
-    python3 scripts/torch_ab.py <dir holding vnlb_tpu_torch> <tag>
+    python3 scripts/torch_ab.py <dir holding vnlb_tpu_torch> <tag> [runs]
 
 Runs ``denoise`` on the 5x480x854 clip of chip_smoke.py (sigma 20) with the
-bench config and with the API default (zero flow): one warmup, then three
-timed runs each, and prints one ``[ab]`` line per path with the walls, the
-best wall and the peak device memory.  To compare two trees, unpack the
+bench config and with the API default (zero flow): one warmup, then
+``runs`` (default 3) timed runs each, and prints one ``[ab]`` line per path
+with the walls, the best wall and the peak device memory.  To compare two trees, unpack the
 parent's ``vnlb_tpu_torch`` into a directory that .gitignore lists and run
 parent, change, change, parent in one call, e.g.
 
@@ -25,6 +25,7 @@ import torch
 
 def main():
     root, tag = os.path.abspath(sys.argv[1]), sys.argv[2]
+    runs = int(sys.argv[3]) if len(sys.argv) > 3 else 3
     sys.path.insert(0, root)
     import vnlb_tpu_torch as vt
     from vnlb_tpu_torch import _build
@@ -43,7 +44,7 @@ def main():
     for name, cfg in (("bench", bench), ("api_zero", None)):
         vt.denoise(noisy, 20.0, cfg=cfg, device=dev)
         walls = []
-        for _ in range(3):
+        for _ in range(runs):
             torch.cuda.reset_peak_memory_stats(dev)
             walls.append(vt.denoise(noisy, 20.0, cfg=cfg, device=dev)[2])
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30

@@ -413,3 +413,52 @@ def test_strip_composition_matches_proc_nl(card):
                       None, cfg)
     diff = (got - want).abs()
     assert diff.max().item() < 0.5 and diff.mean().item() < 0.02
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strip", [0, 1, 3])
+@pytest.mark.parametrize("mode", [dict(dense_rows="full"),
+                                  dict(topk="stream")], ids=["full", "stream"])
+def test_tile_search_all_rows_matches_plain(card, strip, mode):
+    """The halo tile's all-rows search (``exec_search_dense_tile`` in its
+    "full" mode: K3 planes of the tile and of the full-frame needle levels,
+    no bf16 rounding) against the same search on the plain versions, stage
+    0 of a 5x128x96 clip in 4 strips: one K3 launch per (level, dt), the
+    same inf pattern, values to the f32 rounding of the distances
+    (|d| <= 1e-5 (q2 + b2) + 1e-3 per level, (q2 + b2) / norm <= 2), index
+    swaps only at ties."""
+    from vnlb_tpu_torch.ops.search_dense import (exec_search_dense_tile,
+                                                 tile_search_mode)
+    from vnlb_tpu_torch.parallel.halo import (_coarse, _plan_strip_sites,
+                                              _strip_geometry)
+
+    cfg = vt.default_config(20.0, **mode).stage(0).replace(border_mode="mask")
+    assert tile_search_mode(cfg) == "full" and cfg.stype == "needle"
+    shape = (5, 3, 128, 96)
+    vid = torch.from_numpy(np.random.default_rng(9).uniform(
+        0, 255, shape).astype(np.float32)).to(card)
+    halo, hs, h_run = _strip_geometry(shape, cfg, 4)
+    coarse = _coarse(vid, cfg, hs)
+    sites, gy = _plan_strip_sites(shape, cfg, 4, halo, strip)
+    base_row = strip * hs - halo
+    tile = vid.new_zeros((5, 3, hs + 2 * halo, 96))
+    lo, hi = max(base_row, 0), min(base_row + hs + 2 * halo, h_run)
+    tile[:, :, lo - base_row:hi - base_row] = vid[:, :, lo:hi]
+    args = (tile, torch.from_numpy(sites).to(card),
+            torch.from_numpy(gy).to(card), cfg, base_row,
+            h_run - cfg.ps + 1, coarse)
+    dt_lo, dt_hi = eff_dt_range(cfg, 5)
+    before = dense_dist.launches
+    vk, ik = exec_search_dense_tile(*args)
+    assert dense_dist.launches - before == \
+        (1 + len(coarse)) * (dt_hi - dt_lo + 1)
+    vp, ip = exec_search_dense_tile(*args, dist_fn=patch_dist_plain,
+                                    tile_fn=patch_dist_tile_plain,
+                                    dense_fn=dense_dist_plain)
+    fin = torch.isfinite(vp)
+    assert torch.equal(torch.isfinite(vk), fin)
+    norm = cfg.pt * cfg.dist_chnls * cfg.ps ** 2 * 255.0 ** 2
+    tol = (1 + len(coarse)) * (2e-5 + 1e-3 / norm)
+    err = (vk - vp).abs()[fin]
+    assert (err <= tol).all(), err.max().item()
+    assert (ik == ip).float().mean().item() > 0.95

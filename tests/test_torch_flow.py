@@ -19,7 +19,7 @@ from vnlb_tpu.ops import search as jsearch
 from vnlb_tpu.ops.pallas_gather import gather_rows
 from vnlb_tpu.utils import flow_io as jflow
 
-from vnlb_tpu_torch import api, pipeline
+from vnlb_tpu_torch import pipeline
 from vnlb_tpu_torch.config import config_from_jax
 from vnlb_tpu_torch.ops import mask, search
 from vnlb_tpu_torch.ops.patch_gather import (patch_gather,
@@ -106,7 +106,7 @@ def test_prep_flows_match_jax(form):
     shape = (5, 3, 12, 14)
     flows = _flow_forms(rng, 5, 12, 14)[form]
     jf, jb, jz = japi._prep_flows(shape, flows)
-    tf, tb, tz = api._prep_flows(shape, flows)
+    tf, tb, tz = pipeline.prep_flows(shape, flows)
     assert tz == jz == (form in ("none", "zeros"))
     np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
     np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
@@ -120,7 +120,7 @@ def test_prep_flows_match_jax(form):
                                                 flows[1][None], axis=1)):
             np.testing.assert_array_equal(got, want)
     with pytest.raises(ValueError):
-        api._prep_flows((7,) + shape[1:], flows or (np.zeros((5, 2, 12, 14)),
+        pipeline.prep_flows((7,) + shape[1:], flows or (np.zeros((5, 2, 12, 14)),
                                                     np.zeros((5, 2, 12, 14))))
 
 

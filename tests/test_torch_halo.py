@@ -5,7 +5,9 @@ CPU.
   interpret mode at the in-bounds candidates of an offset strip;
 * ``exec_search_dense_tile`` against JAX's on offset strips, with and
   without needle levels: values to one bf16 ulp per level, index swaps only
-  at ties; with the whole frame as the tile it is bitwise the port's own
+  at ties; its all-rows mode (``dense_rows="full"``, ``topk="stream"``)
+  against JAX's ``_search_dense_halo`` to the f32 rounding of the
+  distances; with the whole frame as the tile it is bitwise the port's own
   mask-border dense search;
 * ``proc_nl_halo`` in gloo worlds of 2 and 4 ranks (``run_world``, one
   thread per rank), with zero flow at stages 0 and 1 and with a flow at
@@ -15,8 +17,9 @@ CPU.
   pass (tests/test_torch_pipeline.py: 0.02 dB, mean |d| < 0.25; on this
   clip the two single-device passes differ by up to 1.05 gray levels at
   stage 0, bf16 near-ties of the needle levels, while the port's halo and
-  single-device passes differ by 6e-5); the refusal of strips shorter than
-  the halo;
+  single-device passes differ by 6e-5); the all-rows branch within
+  tests/test_halo.py's bound of JAX's ``proc_nl_halo``; the refusal of
+  strips shorter than the halo;
 * ``strip_runner`` + ``combine_strips`` bitwise against the mesh program for
   the ``small``, ``coarse2`` and ``stream`` geometries of
   tests/test_halo.py.
@@ -32,6 +35,7 @@ import vnlb_tpu_torch as vt
 from vnlb_tpu.ops import pallas_smat as sm
 from vnlb_tpu.ops.search import _avg_pool2 as j_pool
 from vnlb_tpu.ops.search_dense import exec_search_dense_tile as j_tile_search
+from vnlb_tpu.parallel.halo import _search_dense_halo as j_search_dense_halo
 from vnlb_tpu.parallel.halo import proc_nl_halo as j_proc_nl_halo
 from vnlb_tpu.parallel.tiled import make_mesh as j_make_mesh
 from vnlb_tpu.pipeline import proc_nl as j_proc_nl
@@ -42,7 +46,8 @@ from vnlb_tpu_torch.ops.patch_dist import (patch_dist_plain,
                                            patch_dist_tile_plain, tile_oob)
 from vnlb_tpu_torch.ops.search import search_levels
 from vnlb_tpu_torch.ops.search_dense import (exec_search_dense,
-                                             exec_search_dense_tile)
+                                             exec_search_dense_tile,
+                                             tile_search_mode)
 from vnlb_tpu_torch.parallel.comm import Mesh
 from vnlb_tpu_torch.parallel.halo import (combine_strips, proc_nl_halo,
                                           proc_nl_strip_single)
@@ -156,11 +161,11 @@ def test_tile_plain_matches_pallas_interpret():
     assert np.abs(got[ok] - want[ok]).max() / scale < 0.01
 
 
-@pytest.mark.parametrize("stype", ["l2", "needle"])
-def test_tile_search_offset_strip_matches_jax(stype):
+def _offset_strip(stype, **kw):
     """The offset strips of tests/test_search_strided.py:92-202: strip
     [24, 48) of a 72x52 clip (l2), strip [48, 72) of a 96x64 clip with
-    full-frame needle levels."""
+    full-frame needle levels.  Returns (tile, tile sites, global rows,
+    base_row, hp_g, JAX config, JAX's and the port's coarse levels)."""
     if stype == "l2":
         h, w, seed, r0, halo_even = 72, 52, 13, 24, False
     else:
@@ -168,7 +173,7 @@ def test_tile_search_offset_strip_matches_jax(stype):
     t, hs = 4, 24
     video = _mk(seed, t, h, w)
     jc = jcfg.default_config(20.0, preset="iphone").stage(0).replace(
-        nwt_b=2, nwt_f=2, npatches=16, stype=stype, border_mode="mask")
+        nwt_b=2, nwt_f=2, npatches=16, stype=stype, border_mode="mask", **kw)
     tc = config_from_jax(jc)
     halo = (jc.w_s - 1) // 2 + jc.ps - 1
     halo += halo % 2 if halo_even else 0
@@ -178,8 +183,6 @@ def test_tile_search_offset_strip_matches_jax(stype):
     s_g = sites[(sites[:, 1] >= r0) & (sites[:, 1] < r0 + hs)]
     s_l = s_g.copy()
     s_l[:, 1] -= base_row
-    hp_g = h - jc.ps + 1
-
     j_coarse, cur = [], jnp.asarray(video)
     if stype == "needle":
         r = jc.w_s + jc.ps - 1
@@ -189,19 +192,59 @@ def test_tile_search_offset_strip_matches_jax(stype):
                 break
             j_coarse.append(cur)
         assert j_coarse
-    jv, ji = j_tile_search(jnp.asarray(tile), jnp.asarray(s_l),
-                           jnp.asarray(s_g[:, 1]), jc, _phases(video.shape,
-                                                               jc),
-                           jnp.int32(base_row), hp_g, tuple(j_coarse))
     t_coarse = search_levels(torch.from_numpy(video), tc)[1:]
     assert len(t_coarse) == len(j_coarse)
+    return (tile, s_l, s_g[:, 1], base_row, h - jc.ps + 1, jc, j_coarse,
+            t_coarse)
+
+
+def _port_tile_search(tile, s_l, gy, base_row, hp_g, jc, t_coarse):
     tv, ti = exec_search_dense_tile(torch.from_numpy(tile),
                                     torch.from_numpy(s_l),
-                                    torch.from_numpy(s_g[:, 1]), tc,
-                                    base_row, hp_g, t_coarse)
-    jv, ji, tv, ti = map(np.asarray, (jv, ji, tv, ti))
-    assert ti.dtype == np.int32 and tv.shape == jv.shape
-    vtol = (1 + len(t_coarse)) * 2.0 ** -7 * (np.abs(jv) + tc.offset) + 1e-7
+                                    torch.from_numpy(gy),
+                                    config_from_jax(jc), base_row, hp_g,
+                                    t_coarse)
+    assert ti.dtype == torch.int32
+    return tv.numpy(), ti.numpy()
+
+
+@pytest.mark.parametrize("stype", ["l2", "needle"])
+def test_tile_search_offset_strip_matches_jax(stype):
+    """The lattice-row tile search (K1's tile entry at level 0)."""
+    tile, s_l, gy, base_row, hp_g, jc, j_coarse, t_coarse = _offset_strip(
+        stype)
+    jv, ji = j_tile_search(jnp.asarray(tile), jnp.asarray(s_l),
+                           jnp.asarray(gy), jc, _phases(tile.shape, jc),
+                           jnp.int32(base_row), hp_g, tuple(j_coarse))
+    tv, ti = _port_tile_search(tile, s_l, gy, base_row, hp_g, jc, t_coarse)
+    jv, ji = np.asarray(jv), np.asarray(ji)
+    assert tv.shape == jv.shape
+    vtol = (1 + len(t_coarse)) * 2.0 ** -7 * (np.abs(jv) + jc.offset) + 1e-7
+    assert _match(tv, ti, jv, ji, vtol) < 0.05
+
+
+@pytest.mark.parametrize("stype,mode", [
+    ("l2", dict(dense_rows="full")), ("needle", dict(topk="stream"))],
+    ids=["l2-full", "needle-stream"])
+def test_tile_search_all_rows_matches_jax(stype, mode):
+    """The all-rows tile search (``tile_search_mode`` "full": K3 planes of
+    the tile and of the coarse levels, no bf16 rounding) against JAX's
+    ``_search_dense_halo`` on the same strip.  With no bf16 rounding on
+    either side the values differ by the f32 rounding of the distances
+    only: |d| <= 1e-5 (q2 + b2) + 1e-3 per level in raw units
+    (tests/test_torch_dense_full.py), and (q2 + b2) / norm <= 2 for pixels
+    in [0, 255]."""
+    tile, s_l, gy, base_row, hp_g, jc, j_coarse, t_coarse = _offset_strip(
+        stype, **mode)
+    assert tile_search_mode(config_from_jax(jc)) == "full"
+    jv, ji = j_search_dense_halo(jnp.asarray(tile), tuple(j_coarse),
+                                 jnp.asarray(s_l), jnp.asarray(gy), jc,
+                                 -base_row, hp_g - 1 - base_row)
+    tv, ti = _port_tile_search(tile, s_l, gy, base_row, hp_g, jc, t_coarse)
+    jv, ji = np.asarray(jv), np.asarray(ji)
+    norm = jc.pt * jc.dist_chnls * jc.ps ** 2 * 255.0 ** 2
+    vtol = np.full(jv.shape, (1 + len(t_coarse)) * (2e-5 + 1e-3 / norm),
+                   np.float32)
     assert _match(tv, ti, jv, ji, vtol) < 0.05
 
 
@@ -268,7 +311,8 @@ def jax_basic(clip):
 @pytest.fixture(scope="module")
 def worlds(clip, coarse2, jax_basic):
     """The port's mesh programs, one gloo world per size: {(n, name):
-    output of rank 0} plus every rank's zero-flow stage-0 output."""
+    output of rank 0} plus every rank's zero-flow stage-0 output and every
+    call's kernel launches."""
     noisy = clip[0]
     c0, c1 = config_from_jax(_jcfg(0)), config_from_jax(_jcfg(1))
     flow_cfg = config_from_jax(jcfg.default_config(
@@ -276,7 +320,9 @@ def worlds(clip, coarse2, jax_basic):
     calls = {
         2: [("s0", (noisy, None, None, None, c0)),
             ("s1", (noisy, jax_basic, None, None, c1)),
-            ("flow", (noisy, None) + _flow(noisy) + (flow_cfg,))],
+            ("flow", (noisy, None) + _flow(noisy) + (flow_cfg,)),
+            ("full", (noisy, None, None, None,
+                      c0.replace(dense_rows="full")))],
         4: [("s0", (noisy, None, None, None, c0)),
             ("s1", (noisy, jax_basic, None, None, c1)),
             ("coarse2", (coarse2, None, None, None, c0)),
@@ -289,6 +335,7 @@ def worlds(clip, coarse2, jax_basic):
         for i, (name, _) in enumerate(named):
             out[n, name] = ranks[0][i][0]
         out[n, "ranks"] = [r[0][0] for r in ranks]
+        out[n, "launches"] = [c[2] for r in ranks for c in r]
     return out
 
 
@@ -305,11 +352,45 @@ def test_halo_matches_jax(clip, jax_basic, worlds, ndev, stage):
     _near_jax(got, want, clean)
 
 
+@pytest.mark.parametrize("ndev,mode", [(4, "stream"), (2, "full")])
+def test_halo_all_rows_matches_jax(clip, worlds, ndev, mode):
+    """The all-rows tile branch (K3 planes of the tile, no bf16 rounding,
+    as JAX's ``_search_dense_halo``) that ``topk="stream"`` and
+    ``dense_rows="full"`` take: within tests/test_halo.py's bound of JAX's
+    ``proc_nl_halo`` with the same setting and of the port's one-device
+    pass with ``search_bf16=False``."""
+    noisy, zf, clean = clip
+    jc = _jcfg(0).replace(**{"stream": dict(topk="stream"),
+                             "full": dict(dense_rows="full")}[mode])
+    want = np.asarray(j_proc_nl_halo(noisy, None, zf, zf, jc,
+                                     j_make_mesh(ndev, axis="h")))
+    got = worlds[ndev, mode]
+    _assert_close(got, want)
+    # the same search with no bf16 rounding on one device; the rounded
+    # single-device pass moves near-ties (mean |d| 0.045 here) at the
+    # same PSNR
+    tc = config_from_jax(jc)
+    _assert_close(got, _single(noisy, None, (None, None),
+                               tc.replace(search_bf16=False)))
+    _near_jax(got, _single(noisy, None, (None, None), tc), clean)
+
+
 def test_halo_ranks_agree(worlds):
     """Every rank returns the whole output, the same bits."""
     for n in (2, 4):
         first = worlds[n, "ranks"][0]
         assert all(np.array_equal(r, first) for r in worlds[n, "ranks"])
+
+
+def test_sequence_counts_launches_per_call(worlds):
+    """``launch.sequence`` reports each call's launches of every kernel
+    wrapper; on the CPU the wrappers take the plain versions and launch
+    nothing."""
+    names = {k.__name__ for k in vt.KERNELS}
+    for n in (2, 4):
+        assert worlds[n, "launches"]
+        for launches in worlds[n, "launches"]:
+            assert set(launches) == names and not any(launches.values())
 
 
 def test_halo_with_flow_matches_jax(clip, worlds):

@@ -5,22 +5,29 @@
   on a 2-device mesh and against the port's single-device ``denoise``; a
   repeat in the same world is bitwise;
 * ``bayes_denoise_tp`` (the filter batch split, padded 21 -> 22) against
-  the unsplit ``bayes_denoise``;
+  the unsplit ``bayes_denoise`` and against JAX's ``bayes_denoise_tp`` on
+  a 2-device mesh;
 * ``denoise_streaming(mesh=...)`` against JAX's on a 2-device mesh and
   against the port's one-device streaming;
 * ``denoise_pipelined(devices=("cpu", "cpu"))`` bitwise against the port's
-  ``denoise_streaming``.
+  ``denoise_streaming``, and against JAX's ``denoise_pipelined`` over two
+  CPU devices.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 import vnlb_tpu
+import vnlb_tpu.config as jcfg
+from vnlb_tpu.parallel.pipe import denoise_pipelined as j_denoise_pipelined
 from vnlb_tpu.parallel.tiled import denoise_sharded as j_denoise_sharded
 from vnlb_tpu.parallel.tiled import make_mesh as j_make_mesh
+from vnlb_tpu.parallel.tp import bayes_denoise_tp as j_bayes_denoise_tp
 
 import vnlb_tpu_torch as vt
+from vnlb_tpu_torch.config import config_from_jax
 from vnlb_tpu_torch.ops.bayes import bayes_denoise
 from vnlb_tpu_torch.parallel.launch import run_world, sequence
 from vnlb_tpu_torch.parallel.pipe import denoise_pipelined
@@ -135,6 +142,27 @@ def test_bayes_tp_matches_unsplit(world, step):
                                    atol=1e-6)
 
 
+@pytest.mark.parametrize("step", [0, 1])
+def test_bayes_tp_matches_jax(world, step):
+    """Against JAX's split filter on a 2-device mesh, at
+    tests/test_torch_filter.py's bound of the port's filter against JAX's
+    (relative rms < 5e-3 with bf16-rounded products, rank variances to
+    1e-4)."""
+    pn, pb, flat = _groups(step)
+    jc = jcfg.default_config(20.0).stage(step)
+    assert config_from_jax(jc) == vt.default_config(20.0).stage(step)
+    want, rv_want = j_bayes_denoise_tp(pn, pb if step else None,
+                                       flat if step else None, jc,
+                                       j_make_mesh(2, axis="groups"))
+    want, rv_want = np.asarray(want), np.asarray(rv_want)
+    bound = 5e-3 if jc.poly_bf16 else 1e-5
+    for out, rv in world[f"tp{step}"]:
+        assert out.shape == want.shape
+        rms = np.sqrt(np.mean((out - want) ** 2)) / np.abs(want).mean()
+        assert rms < bound, rms
+        np.testing.assert_allclose(rv, rv_want, rtol=1e-4)
+
+
 def test_streaming_mesh_matches_jax(stream_clip, world):
     clean, noisy, kw = stream_clip
     deno, basic, _ = world["stream"][0]
@@ -151,18 +179,38 @@ def test_streaming_mesh_matches_jax(stream_clip, world):
     _assert_close(deno, sdeno)
 
 
-def test_pipelined_equals_streaming():
-    """6 frames in chunks of 2 (pass 2 lags by 2 chunks), 32x32."""
+@pytest.fixture(scope="module")
+def pipe_clip():
+    """6 frames in chunks of 2 (pass 2 lags by 2 chunks), 32x32, nwt 1:
+    (clean, noisy, config kwargs, the port's pipelined (deno, basic))."""
     clean = synthetic_video(6, 32, 32, seed=4)
     noisy = add_noise(clean, 20.0, seed=5)
-    cfg = vt.default_config(20.0, nwt_f=[1, 1], nwt_b=[1, 1])
-    deno, basic, sec = denoise_pipelined(noisy, 20.0, chunk=2, cfg=cfg,
+    kw = dict(nwt_f=[1, 1], nwt_b=[1, 1])
+    deno, basic, sec = denoise_pipelined(noisy, 20.0, chunk=2,
+                                         cfg=vt.default_config(20.0, **kw),
                                          devices=("cpu", "cpu"))
-    sdeno, sbasic, _ = vt.denoise_streaming(noisy, 20.0, chunk=2, cfg=cfg,
-                                            device="cpu")
     assert sec > 0
+    return clean, noisy, kw, deno, basic
+
+
+def test_pipelined_equals_streaming(pipe_clip):
+    _, noisy, kw, deno, basic = pipe_clip
+    sdeno, sbasic, _ = vt.denoise_streaming(
+        noisy, 20.0, chunk=2, cfg=vt.default_config(20.0, **kw),
+        device="cpu")
     np.testing.assert_array_equal(basic, sbasic)
     np.testing.assert_array_equal(deno, sdeno)
+
+
+def test_pipelined_matches_jax(pipe_clip):
+    """JAX's pipelined run, pass 1 and pass 2 on two CPU devices."""
+    clean, noisy, kw, deno, basic = pipe_clip
+    devs = jax.devices()
+    jdeno, jbasic, _ = j_denoise_pipelined(
+        noisy, 20.0, chunk=2, cfg=jcfg.default_config(20.0, **kw),
+        devices=(devs[0], devs[1]))
+    _near_jax(basic, np.asarray(jbasic), clean)
+    _near_jax(deno, np.asarray(jdeno), clean)
 
 
 def test_pipelined_meshes_not_ported():

@@ -133,7 +133,8 @@ def test_port_imports_without_jax():
             "vnlb_tpu_torch.ops.poly_filter, vnlb_tpu_torch.ops.bayes, "
             "vnlb_tpu_torch.ops.eigh, vnlb_tpu_torch.ops.linalg, "
             "vnlb_tpu_torch.ops.spectral, vnlb_tpu_torch.ops.dense_dist, "
-            "vnlb_tpu_torch.api, vnlb_tpu_torch.parallel.comm, "
+            "vnlb_tpu_torch.api, vnlb_tpu_torch.streaming, "
+            "vnlb_tpu_torch.parallel.comm, "
             "vnlb_tpu_torch.parallel.launch, vnlb_tpu_torch.parallel.halo, "
             "vnlb_tpu_torch.parallel.tiled, vnlb_tpu_torch.parallel.tp, "
             "vnlb_tpu_torch.parallel.pipe; "

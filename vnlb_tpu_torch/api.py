@@ -9,41 +9,8 @@ import numpy as np
 import torch
 
 from .config import VnlbConfig, default_config
-from .pipeline import KERNELS, Kernels, proc_nl
-from .utils.flow_io import expand_flows
-
-
-def _as_video(x, device) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.float32)
-    return torch.as_tensor(np.asarray(x, np.float32), device=device)
-
-
-def _prep_flows(noisy_shape, flows, device="cpu"):
-    """(fflow, bflow, zero_flow) for ``denoise`` (vnlb_tpu/api.py:28-50):
-    ``flows`` is None (zero flow), a (fflow, bflow) pair or a dict with
-    those keys, each (T, 2, H, W) or (T-1, 2, H, W); (T-1)-frame stacks are
-    edge-replicated to T frames.  The flows come back as f32 tensors on
-    ``device``; the flag says whether both are all zero."""
-    t, _, h, w = noisy_shape
-    if flows is None:
-        z = torch.zeros((t, 2, h, w), dtype=torch.float32, device=device)
-        return z, z, True
-    if isinstance(flows, dict):
-        fflow, bflow = flows["fflow"], flows["bflow"]
-    else:
-        fflow, bflow = flows
-    fflow = np.asarray(fflow.cpu() if isinstance(fflow, torch.Tensor)
-                       else fflow, np.float32)
-    bflow = np.asarray(bflow.cpu() if isinstance(bflow, torch.Tensor)
-                       else bflow, np.float32)
-    if fflow.shape[0] == t - 1:
-        fflow, bflow = expand_flows(fflow, bflow)
-    if fflow.shape[0] != t or bflow.shape[0] != t:
-        raise ValueError(f"flows must have {t} or {t - 1} frames")
-    zero = bool(not fflow.any() and not bflow.any())
-    return (torch.as_tensor(fflow, device=device),
-            torch.as_tensor(bflow, device=device), zero)
+from .pipeline import KERNELS, Kernels, as_video, prep_flows, proc_nl
+from .streaming import host_inputs, pass_ctx, window_pass, windows
 
 
 def denoise(noisy, sigma: float, flows=None, clean=None,
@@ -77,9 +44,9 @@ def denoise(noisy, sigma: float, flows=None, clean=None,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = cfg or default_config(sigma, preset=preset)
-    noisy_t = _as_video(noisy, device)
-    fflow, bflow, zf = _prep_flows(tuple(noisy_t.shape), flows, device)
-    clean_t = None if clean is None else _as_video(clean, device)
+    noisy_t = as_video(noisy, device)
+    fflow, bflow, zf = prep_flows(tuple(noisy_t.shape), flows, device)
+    clean_t = None if clean is None else as_video(clean, device)
     basic = proc_nl(noisy_t, None, clean_t, fflow, bflow, cfg.stage(0),
                     zero_flow=zf, kernels=kernels)
     deno = proc_nl(noisy_t, basic, clean_t, fflow, bflow, cfg.stage(1),
@@ -87,52 +54,6 @@ def denoise(noisy, sigma: float, flows=None, clean=None,
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return deno, basic, time.perf_counter() - t0
-
-
-def _pass_ctx(scfg) -> int:
-    """Context frames on each side of a streaming window: an output frame
-    takes deposits from sites up to nwt + pt - 1 frames away, whose windows
-    reach as far again."""
-    return 2 * max(scfg.nwt_b, scfg.nwt_f) + scfg.pt - 1
-
-
-def _windows(t_len: int, chunk: int, ctx: int):
-    """[(start, stop, lo, hi)]: output frames [start, stop) computed in the
-    fixed window [lo, hi) of chunk + 2*ctx frames (extra context only widens
-    the exact-match region)."""
-    win = min(t_len, chunk + 2 * ctx)
-    out = []
-    for start in range(0, t_len, chunk):
-        lo = max(0, min(start - ctx, t_len - win))
-        out.append((start, min(start + chunk, t_len), lo, lo + win))
-    return out
-
-
-def _window_pass(scfg, noisy, basic_full, fflow, bflow, zflow, lo, hi,
-                 device, mesh=None) -> torch.Tensor:
-    """One pass over frames [lo, hi) of the host clip, its lattice anchored
-    at frame lo: ``proc_nl`` on ``device``, or ``proc_nl_halo`` over
-    ``mesh``."""
-    bs = None if basic_full is None else basic_full[lo:hi]
-    if mesh is not None:
-        from .parallel.halo import proc_nl_halo
-
-        return proc_nl_halo(noisy[lo:hi], bs, fflow[lo:hi], bflow[lo:hi],
-                            scfg, mesh, t_origin=lo)
-    nz = torch.from_numpy(noisy[lo:hi]).to(device)
-    bs = None if bs is None else torch.from_numpy(bs).to(device)
-    ff, bf = ((None, None) if zflow else
-              (torch.from_numpy(fflow[lo:hi]).to(device),
-               torch.from_numpy(bflow[lo:hi]).to(device)))
-    return proc_nl(nz, bs, None, ff, bf, scfg, zero_flow=zflow, t_origin=lo)
-
-
-def _host_flows(noisy, flows):
-    """(noisy, fflow, bflow, zero_flow) as host arrays."""
-    noisy = np.asarray(noisy.cpu() if isinstance(noisy, torch.Tensor)
-                       else noisy, np.float32)
-    fflow, bflow, zflow = _prep_flows(noisy.shape, flows)
-    return noisy, fflow.numpy(), bflow.numpy(), zflow
 
 
 def denoise_streaming(noisy, sigma: float, chunk: int = 12, flows=None,
@@ -143,12 +64,13 @@ def denoise_streaming(noisy, sigma: float, chunk: int = 12, flows=None,
     (vnlb_tpu/api.py:86-167).
 
     Each pass streams over temporal chunks of ``chunk`` output frames, each
-    run in a fixed window of ``chunk + 2*ctx`` frames (``_pass_ctx``), so
-    every contributing site sees what it sees in the whole-clip run.  Pass
-    1 is assembled on the host before pass 2 streams over it; each window's
-    lattice is anchored to global frame indices (``proc_nl(...,
-    t_origin)``).  The device holds one window at a time; outputs match
-    ``denoise`` up to the summation order of the scatter.
+    run in a fixed window of ``chunk + 2*ctx`` frames
+    (``streaming.pass_ctx``), so every contributing site sees what it sees
+    in the whole-clip run.  Pass 1 is assembled on the host before pass 2
+    streams over it; each window's lattice is anchored to global frame
+    indices (``proc_nl(..., t_origin)``).  The device holds one window at a
+    time; outputs match ``denoise`` up to the summation order of the
+    scatter.
 
     ``mesh`` (a ``parallel.comm.Mesh``): every rank of the world calls this
     with the whole clip, and each window runs ``parallel.halo.proc_nl_halo``
@@ -159,15 +81,22 @@ def denoise_streaming(noisy, sigma: float, chunk: int = 12, flows=None,
     device = torch.device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    noisy, fflow, bflow, zflow = _host_flows(noisy, flows)
+    noisy, fflow, bflow, zflow = host_inputs(noisy, flows)
     t_len = noisy.shape[0]
     cfg = cfg or default_config(sigma, preset=preset)
+    if mesh is not None:
+        from .parallel.halo import proc_nl_halo
 
     def stream_pass(scfg, basic_full):
         out = np.empty_like(noisy)
-        for start, stop, lo, hi in _windows(t_len, chunk, _pass_ctx(scfg)):
-            o = _window_pass(scfg, noisy, basic_full, fflow, bflow, zflow,
-                             lo, hi, device, mesh)
+        for start, stop, lo, hi in windows(t_len, chunk, pass_ctx(scfg)):
+            if mesh is None:
+                o = window_pass(scfg, noisy, basic_full, fflow, bflow, zflow,
+                                lo, hi, device)
+            else:
+                o = proc_nl_halo(noisy[lo:hi], None if basic_full is None
+                                 else basic_full[lo:hi], fflow[lo:hi],
+                                 bflow[lo:hi], scfg, mesh, t_origin=lo)
             out[start:stop] = o[start - lo:stop - lo].cpu().numpy()
         return out
 

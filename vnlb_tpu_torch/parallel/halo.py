@@ -34,12 +34,11 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..api import _prep_flows
 from ..config import StageConfig, VnlbConfig, default_config
 from ..ops import color
 from ..ops.mask import lattice_sites
-from ..ops.search_dense import exec_search_dense_tile, tile_search_mode
-from ..pipeline import KERNELS, Kernels, accumulate, check_supported, finish
+from ..pipeline import (KERNELS, Kernels, Tile, accumulate, check_supported,
+                        finish, prep_flows)
 from ..utils.index import check_codec_range
 from .comm import (Mesh, all_gather, exchange_halos, fold_margins, fold_tile,
                    make_mesh)
@@ -128,24 +127,12 @@ def _tile_pass(n_tile, b_tile, ff_tile, bf_tile, sites, gy, coarse,
     the global row bounds; else the dense tile search under mask
     borders."""
     srch = b_tile if cfg.srch_img == "basic" else n_tile
+    tile = Tile(base_row, h_run, gy, coarse)
     if ff_tile is not None:
         return accumulate(n_tile, b_tile, srch, ff_tile, bf_tile, sites, 0,
-                          cfg, kernels,
-                          y_bounds=(-base_row, h_run - 1 - base_row),
-                          coarse=coarse)
-    cfgm = cfg.replace(border_mode="mask")
-    hp_g = h_run - cfg.ps + 1
-
-    def dense_search(s0, s1):
-        return exec_search_dense_tile(
-            srch, sites[s0:s1], gy[s0:s1], cfgm, base_row, hp_g, coarse,
-            dist_fn=kernels.patch_dist, tile_fn=kernels.patch_dist_tile,
-            dense_fn=kernels.dense_dist)
-
+                          cfg, kernels, tile)
     return accumulate(n_tile, b_tile, srch, None, None, sites, len(sites),
-                      cfgm, kernels, dense_search=dense_search,
-                      whole_dense=tile_search_mode(cfgm) == "full",
-                      coarse=coarse)
+                      cfg.replace(border_mode="mask"), kernels, tile)
 
 
 def _host(x) -> Optional[np.ndarray]:
@@ -326,7 +313,7 @@ def denoise_halo(noisy, sigma: float, mesh: Optional[Mesh] = None,
     basic), whole, on the rank's device."""
     mesh = mesh or make_mesh(axis="h")
     cfg = cfg or default_config(sigma, preset=preset)
-    fflow, bflow, _ = _prep_flows(tuple(np.shape(noisy)), flows)
+    fflow, bflow, _ = prep_flows(tuple(np.shape(noisy)), flows)
     basic = proc_nl_halo(noisy, None, fflow, bflow, cfg.stage(0), mesh,
                          kernels=kernels)
     deno = proc_nl_halo(noisy, basic, fflow, bflow, cfg.stage(1), mesh,

@@ -25,6 +25,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from ..pipeline import KERNELS
 from .comm import make_mesh
 
 
@@ -81,14 +82,18 @@ def run_world(fn: Callable, n: int, args=(), kwargs=None,
 
 def sequence(calls, mesh):
     """Run ``[(fn, args, kwargs), ...]`` in order on this rank (one world
-    for several programs): [(result, wall seconds)], each wall ended after
-    a device synchronize."""
+    for several programs): [(result, wall seconds, launches)], each wall
+    ended after a device synchronize; ``launches`` maps the name of each
+    kernel wrapper of ``pipeline.KERNELS`` to the launches of that call
+    (every count is set to 0 before it)."""
     outs = []
     for fn, a, kw in calls:
+        for k in KERNELS:
+            k.launches = 0
         t0 = time.perf_counter()
         out = fn(*a, mesh=mesh, **kw)
         if mesh.device.type == "cuda":
             torch.cuda.synchronize(mesh.device)
-        outs.append((out, time.perf_counter() - t0))
+        outs.append((out, time.perf_counter() - t0,
+                     {k.__name__: k.launches for k in KERNELS}))
     return outs
-

@@ -3,7 +3,7 @@
 
 Pass 1 (basic) runs chunk j on the first device while pass 2 (final) runs
 the newest chunk whose basic context is final on the second.  The windows
-are ``denoise_streaming``'s (``api._windows``, ``api._pass_ctx``) and pass
+are ``denoise_streaming``'s (``streaming.windows``, ``pass_ctx``) and pass
 2 reads the same finalized basic frames, so the output equals
 ``denoise_streaming`` on the same chunking bit for bit.  The lag, L =
 ceil(ctx2 / chunk) chunks, is the smallest offset at which every basic
@@ -20,8 +20,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..api import _host_flows, _pass_ctx, _window_pass, _windows
 from ..config import VnlbConfig, default_config
+from ..streaming import host_inputs, pass_ctx, window_pass, windows
 
 
 def denoise_pipelined(noisy, sigma: float, chunk: int = 12, flows=None,
@@ -41,7 +41,7 @@ def denoise_pipelined(noisy, sigma: float, chunk: int = 12, flows=None,
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    noisy, fflow, bflow, zflow = _host_flows(noisy, flows)
+    noisy, fflow, bflow, zflow = host_inputs(noisy, flows)
     t_len = noisy.shape[0]
     cfg = cfg or default_config(sigma, preset=preset)
     s0, s1 = cfg.stage(0), cfg.stage(1)
@@ -50,8 +50,8 @@ def denoise_pipelined(noisy, sigma: float, chunk: int = 12, flows=None,
         devices = ("cuda:0", f"cuda:{1 % max(n, 1)}")
     d0, d1 = (torch.device(d) for d in devices)
 
-    w1 = _windows(t_len, chunk, _pass_ctx(s0))
-    w2 = _windows(t_len, chunk, _pass_ctx(s1))
+    w1 = windows(t_len, chunk, pass_ctx(s0))
+    w2 = windows(t_len, chunk, pass_ctx(s1))
     basic = np.empty_like(noisy)
     deno = np.empty_like(noisy)
     basic_final = -1                   # highest finalized basic frame + 1
@@ -59,8 +59,8 @@ def denoise_pipelined(noisy, sigma: float, chunk: int = 12, flows=None,
 
     def dispatch_p1(j):
         _, _, lo, hi = w1[j]
-        p1_pending.append((j, _window_pass(s0, noisy, None, fflow, bflow,
-                                           zflow, lo, hi, d0)))
+        p1_pending.append((j, window_pass(s0, noisy, None, fflow, bflow,
+                                          zflow, lo, hi, d0)))
 
     def drain_p1():
         nonlocal basic_final
@@ -73,8 +73,8 @@ def denoise_pipelined(noisy, sigma: float, chunk: int = 12, flows=None,
 
     def dispatch_p2(i):
         _, _, lo, hi = w2[i]
-        p2_pending.append((i, _window_pass(s1, noisy, basic, fflow, bflow,
-                                           zflow, lo, hi, d1)))
+        p2_pending.append((i, window_pass(s1, noisy, basic, fflow, bflow,
+                                          zflow, lo, hi, d1)))
 
     def drain_p2():
         i, o = p2_pending.pop(0)

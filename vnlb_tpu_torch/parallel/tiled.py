@@ -17,9 +17,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..api import _as_video, _prep_flows
 from ..config import StageConfig, VnlbConfig, default_config
-from ..pipeline import KERNELS, Kernels, accumulate, finish, plan_sites, prepare
+from ..pipeline import (KERNELS, Kernels, accumulate, as_video, finish,
+                        plan_sites, prep_flows, prepare)
 from .comm import Mesh, all_reduce_sum, make_mesh
 
 
@@ -39,9 +39,9 @@ def proc_nl_sharded(noisy, basic, clean, fflow, bflow, cfg: StageConfig,
     whole clip and gets the whole RGB output on its device."""
     dev = mesh.device
     noisy_yuv, basic_yuv, srch, fflow, bflow, zero_flow = prepare(
-        _as_video(noisy, dev),
-        None if basic is None else _as_video(basic, dev),
-        None if clean is None else _as_video(clean, dev),
+        as_video(noisy, dev),
+        None if basic is None else as_video(basic, dev),
+        None if clean is None else as_video(clean, dev),
         fflow, bflow, cfg, zero_flow)
     sites, n_dense = plan_sites(tuple(noisy_yuv.shape), cfg, zero_flow,
                                 t_origin)
@@ -63,7 +63,7 @@ def denoise_sharded(noisy, sigma: float, mesh: Optional[Mesh] = None,
     the rank's device."""
     mesh = mesh or make_mesh(axis="sites")
     cfg = cfg or default_config(sigma, preset=preset)
-    fflow, bflow, zf = _prep_flows(tuple(np.shape(noisy)), flows)
+    fflow, bflow, zf = prep_flows(tuple(np.shape(noisy)), flows)
     basic = proc_nl_sharded(noisy, None, None, fflow, bflow, cfg.stage(0),
                             mesh, zero_flow=zf, kernels=kernels)
     deno = proc_nl_sharded(noisy, basic, None, fflow, bflow, cfg.stage(1),

@@ -20,7 +20,7 @@ all site batches.  The pass is deterministic.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,7 +36,9 @@ from .ops.patch_dist import (patch_dist, patch_dist_plain, patch_dist_tile,
 from .ops.patch_gather import patch_gather, patch_gather_plain
 from .ops.poly_filter import poly_filter, poly_filter_plain
 from .ops.search import exec_search, search_levels
-from .ops.search_dense import exec_search_dense
+from .ops.search_dense import (exec_search_dense, exec_search_dense_tile,
+                                tile_search_mode)
+from .utils.flow_io import expand_flows
 from .utils.index import check_codec_range
 
 # sites per chunk: bounds the candidate planes, patch gathers and filter
@@ -109,42 +111,59 @@ def plan_sites(shape, cfg: StageConfig, zero_flow: bool, t_origin: int = 0):
     return np.concatenate([interior, border]), interior.shape[0]
 
 
+class Tile(NamedTuple):
+    """Where a halo strip tile of the H-sharded pass (parallel/halo.py)
+    lies in the frame: tile row 0 is global row ``base_row`` of a frame of
+    ``h_run`` rows; ``gy`` (S,) holds the sites' global rows and
+    ``coarse`` the full-frame pooled needle levels 1, 2, ... (searched
+    channels)."""
+
+    base_row: int
+    h_run: int
+    gy: torch.Tensor
+    coarse: Sequence[torch.Tensor]
+
+
 def accumulate(noisy_yuv: torch.Tensor, basic_yuv: torch.Tensor,
                srch_yuv: torch.Tensor, fflow: torch.Tensor,
                bflow: torch.Tensor, sites: torch.Tensor, n_dense: int,
                cfg: StageConfig, kernels: Kernels = KERNELS,
-               dense_search: Optional[Callable] = None,
-               whole_dense: Optional[bool] = None, y_bounds=None,
-               coarse: Optional[Sequence[torch.Tensor]] = None):
+               tile: Optional[Tile] = None):
     """All sites -> image-space (deno (T, C, H, W), weights (T, H, W))
     accumulators over the shape of ``noisy_yuv``, un-normalized.  Chunks
     never mix the dense and the gather sites.
 
-    The halo strip program (parallel/halo.py) runs this on a tile:
-    ``dense_search(s0, s1) -> (vals, inds)`` searches dense sites [s0, s1)
-    (default: ``exec_search_dense`` of ``srch_yuv``); ``whole_dense`` runs
-    it once over all dense sites before the accumulator exists (default:
-    under ``dense_rows="full"``, whose planes every site shares);
-    ``y_bounds`` (the global row bounds in tile coordinates) goes to the
-    gather search, and ``coarse`` (full-frame pooled levels, searched
-    channels) replaces the pyramid of ``srch_yuv`` above level 0."""
+    With ``tile`` the inputs are a halo strip tile: the dense sites take
+    ``exec_search_dense_tile`` (the global frame's out-of-bounds mask), the
+    gather sites the global row bounds, and both the full-frame coarse
+    levels.  A search whose planes every site shares (``dense_rows="full"``,
+    and any all-rows tile search) runs once over all dense sites first."""
     shape = tuple(noisy_yuv.shape)
     t_len, c, h, w = shape
     hp, wp = h - cfg.ps + 1, w - cfg.ps + 1
     d = c * cfg.ps * cfg.ps
     dev = noisy_yuv.device
-    if coarse is None:
+    if tile is None:
         levels = search_levels(srch_yuv, cfg)
-    else:
-        levels = [srch_yuv[:, :cfg.dist_chnls].contiguous(), *coarse]
-    if dense_search is None:
+        whole_dense = cfg.dense_rows == "full"
+        y_bounds = None
+
         def dense_search(s0, s1):
             return exec_search_dense(srch_yuv, sites[s0:s1], cfg,
                                      levels=levels,
                                      dist_fn=kernels.patch_dist,
                                      dense_fn=kernels.dense_dist)
-    if whole_dense is None:
-        whole_dense = cfg.dense_rows == "full"
+    else:
+        levels = [srch_yuv[:, :cfg.dist_chnls].contiguous(), *tile.coarse]
+        whole_dense = tile_search_mode(cfg) == "full"
+        y_bounds = (-tile.base_row, tile.h_run - 1 - tile.base_row)
+
+        def dense_search(s0, s1):
+            return exec_search_dense_tile(
+                srch_yuv, sites[s0:s1], tile.gy[s0:s1], cfg, tile.base_row,
+                tile.h_run - cfg.ps + 1, tile.coarse,
+                dist_fn=kernels.patch_dist, tile_fn=kernels.patch_dist_tile,
+                dense_fn=kernels.dense_dist)
     dense = None
     if n_dense and whole_dense:
         # before the accumulator exists: the search's planes and candidate
@@ -197,6 +216,40 @@ def accumulate(noisy_yuv: torch.Tensor, basic_yuv: torch.Tensor,
         wts = (inds[:, :ka] >= 0).to(torch.float32)
         agg.agg_rows(acc, pfilt[:, :ka], rows[:, :, 0], wts)
     return agg.fold(acc, cfg.pt, cfg.ps, shape)
+
+
+def as_video(x, device) -> torch.Tensor:
+    """A (T, C, H, W) video, numpy or torch, as f32 on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
+def prep_flows(noisy_shape, flows, device="cpu"):
+    """(fflow, bflow, zero_flow) for a two-pass call (vnlb_tpu/api.py:28-50):
+    ``flows`` is None (zero flow), a (fflow, bflow) pair or a dict with
+    those keys, each (T, 2, H, W) or (T-1, 2, H, W); (T-1)-frame stacks are
+    edge-replicated to T frames.  The flows come back as f32 tensors on
+    ``device``; the flag says whether both are all zero."""
+    t, _, h, w = noisy_shape
+    if flows is None:
+        z = torch.zeros((t, 2, h, w), dtype=torch.float32, device=device)
+        return z, z, True
+    if isinstance(flows, dict):
+        fflow, bflow = flows["fflow"], flows["bflow"]
+    else:
+        fflow, bflow = flows
+    fflow = np.asarray(fflow.cpu() if isinstance(fflow, torch.Tensor)
+                       else fflow, np.float32)
+    bflow = np.asarray(bflow.cpu() if isinstance(bflow, torch.Tensor)
+                       else bflow, np.float32)
+    if fflow.shape[0] == t - 1:
+        fflow, bflow = expand_flows(fflow, bflow)
+    if fflow.shape[0] != t or bflow.shape[0] != t:
+        raise ValueError(f"flows must have {t} or {t - 1} frames")
+    zero = bool(not fflow.any() and not bflow.any())
+    return (torch.as_tensor(fflow, device=device),
+            torch.as_tensor(bflow, device=device), zero)
 
 
 def _as_flow(flow, shape, device) -> torch.Tensor:

@@ -21,7 +21,10 @@ on the strips of a 4-strip split, the one-card strip runner over all four
 strips of both passes against the mask-border ``proc_nl``, and a 2-rank
 gloo world on the one card (``denoise_halo`` bitwise against the 2-strip
 composition, ``proc_nl_halo`` with the drift flow, ``denoise_sharded``,
-``denoise_streaming(mesh=...)`` of a 12x480x854 clip).  Every phase prints
+``denoise_streaming(mesh=...)`` of a 12x480x854 clip).  K2's lines name
+the design each group shape takes (tensor cores or shared memory), and
+every 480p run through K2 logs K2's device time (CUDA events around each
+launch, in one extra run).  Every phase prints
 one line; any
 failure raises and the script exits nonzero.  The second-to-last line is the kernel table as JSON (each kernel's time, its
 plain version's and its bound: the larger of its bytes over the memory
@@ -248,10 +251,16 @@ def e2e(vt, name, noisy, clean, dev, counters, expect, cfg=None,
     p_basic = compute_psnr(basic_np, clean)
     p_deno = compute_psnr(deno_np, clean)
     best = min(times)
+    k2 = {}
+    if "econ_filter" in expect:
+        k2_s, k2_ms, k2_n = k2_timed_run(vt, noisy_t, dev, cfg, flows)
+        k2 = dict(k2_device_ms=f"{k2_ms:.1f}", k2_launches=k2_n,
+                  k2_run_seconds=f"{k2_s:.4f}",
+                  k2_share=f"{k2_ms / 1e3 / k2_s:.3f}")
     log(name, seconds=",".join(f"{t:.4f}" for t in times),
         fps=f"{T / best:.3f}", psnr_noisy=f"{p_noisy:.4f}",
         psnr_basic=f"{p_basic:.4f}", psnr_deno=f"{p_deno:.4f}",
-        peak_mem_gib=f"{peak / 2 ** 30:.3f}", repeat_bitwise=True)
+        peak_mem_gib=f"{peak / 2 ** 30:.3f}", repeat_bitwise=True, **k2)
     if not p_deno >= p_noisy + 6.0:
         raise AssertionError(f"{name}: deno {p_deno} < noisy {p_noisy} + 6")
 
@@ -268,6 +277,27 @@ def e2e(vt, name, noisy, clean, dev, counters, expect, cfg=None,
         raise AssertionError(f"{name}: kernel path and plain path differ by "
                              f">= 0.02 dB")
     return launches, deno, basic
+
+
+def k2_timed_run(vt, noisy_t, dev, cfg, flows):
+    """One more run of a path with CUDA events around each K2 launch:
+    (wall seconds, K2 device ms, K2 launches)."""
+    from vnlb_tpu_torch.ops.econ_filter import econ_filter
+
+    events = []
+
+    def timed(xc, xn, scfg):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = econ_filter(xc, xn, scfg)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    kernels = vt.KERNELS._replace(econ_filter=timed)
+    _, _, sec = vt.denoise(noisy_t, SIGMA, flows=flows, cfg=cfg, device=dev,
+                           kernels=kernels)
+    return sec, sum(a.elapsed_time(b) for a, b in events), len(events)
 
 
 def assert_close(name, got, want):
@@ -630,7 +660,12 @@ def main():
     from vnlb_tpu_torch.ops import color
     from vnlb_tpu_torch.ops.dense_dist import (_box_ps, dense_dist,
                                                dense_dist_plain)
-    from vnlb_tpu_torch.ops.econ_filter import econ_filter, econ_filter_plain
+    from vnlb_tpu_torch.ops.econ_filter import design as econ_design
+    from vnlb_tpu_torch.ops.econ_filter import (econ_filter,
+                                                econ_filter_kernel,
+                                                econ_filter_plain)
+    from vnlb_tpu_torch.ops.econ_filter import tc_plan as econ_tc_plan
+    from vnlb_tpu_torch.ops.econ_filter import tc_smem_bytes
     from vnlb_tpu_torch.ops.mask import interior_split, lattice_sites
     from vnlb_tpu_torch.ops.patch_dist import (patch_dist, patch_dist_plain,
                                                patch_dist_tile)
@@ -860,9 +895,12 @@ def main():
         del got, want
 
     # ---- 6. K2 vs plain, both routes, at G=768 and at the main path's
-    # chunk of 4096 sites x 3 channels (iphone shapes), then at the group
-    # shapes beyond shared memory (pt=2 first pass, couple_channels) ----
-    def filter_check(tag, fn, plain, work, scfg, g, k, p, tol, reps):
+    # chunk of 4096 sites x 3 channels (iphone shapes: the tensor-core
+    # design, timed beside the shared-memory design on the same inputs),
+    # the chunk without poly_bf16, then at the group shapes beyond shared
+    # memory (pt=2 first pass, couple_channels) ----
+    def filter_check(tag, fn, plain, work, scfg, g, k, p, tol, reps,
+                     beside=None, tags=None):
         base = rng.normal(size=(g, 1, p)).astype(np.float32) * 30
         xc = torch.from_numpy(base + rng.normal(size=(g, k, p))
                               .astype(np.float32) * 20).to(dev)
@@ -879,9 +917,11 @@ def main():
         kms = cuda_ms(lambda: fn(xc, xn, scfg), reps)
         pms = cuda_ms(lambda: plain(xc, xn, scfg), reps)
         bms, by = bound(*work(g, k, p, scfg))
+        extra = {f"{key}_ms": f"{cuda_ms(lambda: f(xc, xn, scfg), reps):.3f}"
+                 for key, f in (beside or {}).items()}
         log(tag, G=g, K=k, p=p, rms_over_scale=f"{rms:.3g}",
             kernel_ms=f"{kms:.3f}", plain_ms=f"{pms:.3f}",
-            bound_ms=f"{bms:.4f}", bound_by=by)
+            bound_ms=f"{bms:.4f}", bound_by=by, **(tags or {}), **extra)
         return err, (kms, pms, (bms, by))
 
     k2_err = 0.0
@@ -895,11 +935,28 @@ def main():
                  (3 * 4096, "matrix(default s0)", dflt0, 100, 98),
                  (768, "gram(couple s0)", s0, 100, 147),
                  (768, "gram(couple s1)", s1, 60, 294),
-                 (768, "gram(couple default s0)", dflt0, 100, 294)]
+                 (768, "gram(couple default s0)", dflt0, 100, 294),
+                 (3 * 4096, "matrix(s0) f32", s0.replace(poly_bf16=False),
+                  100, 49),
+                 (3 * 4096, "gram(s1) f32", s1.replace(poly_bf16=False),
+                  60, 98)]
     for g, name, scfg, k, p in k2_cases:
+        # the design the shape takes; beside the tensor-core design, the
+        # shared-memory design on the same inputs
+        kind = econ_design(k, p, scfg.poly_bf16)
+        tags, beside = dict(design=kind), None
+        if kind == "tc":
+            smem, per_sm = econ_tc_plan(k, p)
+            if per_sm < 2 or smem != tc_smem_bytes(k, p):
+                raise AssertionError(f"k2 {name}: {per_sm} blocks per SM, "
+                                     f"{smem} bytes (the wrapper's plan: "
+                                     f"{tc_smem_bytes(k, p)})")
+            tags.update(smem_bytes=smem, blocks_per_sm=per_sm)
+            beside = {"smem_design": lambda a, b, c: econ_filter_kernel(
+                a, b, c, smem_design=True)}
         err, k2_times[name, g] = filter_check(
             f"k2 {name}", econ_filter, econ_filter_plain, econ_work, scfg,
-            g, k, p, 5e-3, 5)
+            g, k, p, 5e-3, 5, beside=beside, tags=tags)
         k2_err = max(k2_err, err)
 
     # ---- 6b. K5 vs plain: right route (stage 0, K=100 >= p=49) and left

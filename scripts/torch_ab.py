@@ -7,7 +7,12 @@ for parent/change comparisons on one CUDA card.
 Runs ``denoise`` on the 5x480x854 clip of chip_smoke.py (sigma 20) with the
 bench config and with the API default (zero flow): one warmup, then
 ``runs`` (default 3) timed runs each, and prints one ``[ab]`` line per path
-with the walls, the best wall and the peak device memory.  To compare two trees, unpack the
+with the walls, the best wall and the peak device memory.  Then times K2
+(``econ_filter``) on the main path's two group shapes (12,288 groups of
+(100, 49) and of (60, 98)), on the same without poly_bf16, on the shapes
+beyond the tensor-core design ((100, 98) of preset ``default``, the
+``couple_channels`` shapes), and K5 (``poly_filter``) on both routes,
+with CUDA events over several launches, one ``[ab]`` line each.  To compare two trees, unpack the
 parent's ``vnlb_tpu_torch`` into a directory that .gitignore lists and run
 parent, change, change, parent in one call, e.g.
 
@@ -20,6 +25,7 @@ parent, change, change, parent in one call, e.g.
 import os
 import sys
 
+import numpy as np
 import torch
 
 
@@ -51,7 +57,41 @@ def main():
         print(f"[ab] tag={tag} path={name} seconds="
               f"{','.join(f'{t:.4f}' for t in walls)} best={min(walls):.4f} "
               f"peak_gib={peak:.3f}", flush=True)
+    from vnlb_tpu_torch.ops.econ_filter import econ_filter
+    from vnlb_tpu_torch.ops.poly_filter import poly_filter
 
+    rng = np.random.default_rng(0)
+    api = vt.default_config(20.0)
+    dflt0 = vt.default_config(20.0, preset="default").stage(0)
+    f32 = dict(poly_bf16=False)
+    # (name, kernel, groups, K, p, stage config, launches timed)
+    cases = [("k2_100x49", econ_filter, 12288, 100, 49, api.stage(0), 20),
+             ("k2_60x98", econ_filter, 12288, 60, 98, api.stage(1), 20),
+             ("k2_100x49_f32", econ_filter, 12288, 100, 49,
+              api.stage(0).replace(**f32), 10),
+             ("k2_60x98_f32", econ_filter, 12288, 60, 98,
+              api.stage(1).replace(**f32), 10),
+             ("k2_100x98", econ_filter, 12288, 100, 98, dflt0, 5),
+             ("k2_100x147", econ_filter, 768, 100, 147, api.stage(0), 10),
+             ("k2_60x294", econ_filter, 768, 60, 294, api.stage(1), 10),
+             ("k2_100x294", econ_filter, 768, 100, 294, dflt0, 10),
+             ("k5_100x49", poly_filter, 12288, 100, 49, api.stage(0), 5),
+             ("k5_60x98", poly_filter, 12288, 60, 98, api.stage(1), 3)]
+    for name, fn, g, k, p, cfg, reps in cases:
+        base = rng.normal(size=(g, 1, p)).astype(np.float32) * 30
+        xc, xn = (torch.from_numpy(base + rng.normal(size=(g, k, p))
+                                   .astype(np.float32) * 20).to(dev)
+                  for _ in range(2))
+        fn(xc, xn, cfg)
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(reps):
+            fn(xc, xn, cfg)
+        stop.record()
+        torch.cuda.synchronize()
+        print(f"[ab] tag={tag} path={name} "
+              f"ms={start.elapsed_time(stop) / reps:.4f}", flush=True)
+        del xc, xn
 
 if __name__ == "__main__":
     main()

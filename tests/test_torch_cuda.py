@@ -15,7 +15,9 @@ import torch
 import vnlb_tpu_torch as vt
 from vnlb_tpu_torch.ops.dense_dist import (dense_dist, dense_dist_plain,
                                            frame_range)
-from vnlb_tpu_torch.ops.econ_filter import econ_filter, econ_filter_plain
+from vnlb_tpu_torch.ops.econ_filter import (design, econ_filter,
+                                            econ_filter_plain, tc_plan,
+                                            tc_smem_bytes)
 from vnlb_tpu_torch.ops.mask import lattice_sites
 from vnlb_tpu_torch.ops.patch_dist import (patch_dist, patch_dist_plain,
                                            patch_dist_tile,
@@ -209,6 +211,48 @@ def test_econ_filter_kernel_large_groups(card, preset, stage, k, p):
     got32 = econ_filter(xc, xn, cfg.replace(poly_bf16=False))
     want32 = econ_filter_plain(xc, xn, cfg.replace(poly_bf16=False))
     assert _rel_rms(got32, want32) < 1e-4
+
+
+# the tensor-core design's shapes: both main-path shapes at a chunk's
+# 12,288 groups, and widths that pad to 64 (q = 37, 33) at group counts
+# that are not a multiple of the resident blocks (132 SMs x 2)
+TC_SHAPES = [(1, 60, 98, 12288), (0, 100, 49, 12288), (1, 37, 98, 777),
+             (0, 64, 33, 535)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("stage,k,p,g", TC_SHAPES)
+def test_econ_filter_tc_shapes_match_plain(card, stage, k, p, g, bf16):
+    """The tensor-core design under poly_bf16 (the shared-memory design
+    without it) against the plain version at the tolerances of
+    test_econ_filter_kernel_matches_plain; a repeat run is bitwise equal
+    and each call is one launch."""
+    cfg = vt.default_config(20.0).stage(stage).replace(poly_bf16=bf16)
+    assert design(k, p, bf16) == ("tc" if bf16 else "smem")
+    xc, xn = _groups(np.random.default_rng(k * p + g), g, k, p, card)
+    before = econ_filter.launches
+    got = econ_filter(xc, xn, cfg)
+    again = econ_filter(xc, xn, cfg)
+    want = econ_filter_plain(xc, xn, cfg)
+    torch.cuda.synchronize()
+    assert econ_filter.launches == before + 2
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    assert _rel_rms(got, want) < (5e-2 if bf16 else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,p", [(100, 49), (60, 98), (37, 98), (64, 33),
+                                 (16, 128), (16, 129), (100, 98), (60, 294),
+                                 (100, 147)])
+def test_econ_tc_plan_matches_wrapper(card, k, p):
+    """The kernel library's plan of the tensor-core design equals the
+    wrapper's (ops/econ_filter.tc_smem_bytes), and a shape it takes keeps
+    two blocks on an SM."""
+    smem, per_sm = tc_plan(k, p)
+    assert smem == tc_smem_bytes(k, p)
+    assert per_sm >= 2 if smem else per_sm == 0
 
 
 @pytest.mark.cuda

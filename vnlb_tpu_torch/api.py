@@ -11,8 +11,10 @@ import torch
 from .config import VnlbConfig, default_config
 from .pipeline import KERNELS, Kernels, as_video, prep_flows, proc_nl
 from .streaming import host_inputs, pass_ctx, window_pass, windows
+from .utils.precision import full_f32
 
 
+@full_f32()
 def denoise(noisy, sigma: float, flows=None, clean=None,
             preset: str = "iphone", cfg: Optional[VnlbConfig] = None,
             device="cuda", kernels: Kernels = KERNELS
@@ -39,10 +41,6 @@ def denoise(noisy, sigma: float, flows=None, clean=None,
     """
     t0 = time.perf_counter()
     device = torch.device(device)
-    # full f32 matrix products everywhere the port runs (the plain
-    # versions use torch.bmm)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = cfg or default_config(sigma, preset=preset)
     noisy_t = as_video(noisy, device)
     fflow, bflow, zf = prep_flows(tuple(noisy_t.shape), flows, device)
@@ -56,6 +54,7 @@ def denoise(noisy, sigma: float, flows=None, clean=None,
     return deno, basic, time.perf_counter() - t0
 
 
+@full_f32()
 def denoise_streaming(noisy, sigma: float, chunk: int = 12, flows=None,
                       preset: str = "iphone",
                       cfg: Optional[VnlbConfig] = None, mesh=None,
@@ -79,8 +78,6 @@ def denoise_streaming(noisy, sigma: float, chunk: int = 12, flows=None,
     """
     t0 = time.perf_counter()
     device = torch.device(device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     noisy, fflow, bflow, zflow = host_inputs(noisy, flows)
     t_len = noisy.shape[0]
     cfg = cfg or default_config(sigma, preset=preset)

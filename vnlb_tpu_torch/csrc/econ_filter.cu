@@ -26,19 +26,34 @@
 //
 // What bounds it on the H100: arithmetic.  A stage-1 group (K=60, p=98)
 // reads and writes 3 x 23.5 KB and does ~2.8 M multiply-adds, ~40 FMAs per
-// byte; the chain is seven dependent q x q products.  The simple design
-// keeps the group's two patch blocks and seven q x q f32 matrices in
-// shared memory when they fit (~148 KB at stage 1, ~106 KB at stage 0 of
-// the iphone preset), reads each input once and writes the output once;
-// the products (group_mm.cuh) run on CUDA cores with a 2x2 tile of
-// outputs per thread, rounding operands to bf16 in registers and
-// accumulating with fmaf.  Tensor cores (wgmma) are a later change.
+// byte; the chain is seven dependent q x q products.  Two designs:
+//
+// The tensor-core design (`econ_tc_kernel`, econ_tc.cuh) takes the groups
+// with q <= 64 under poly_bf16 whose buffers leave room for two blocks per
+// SM: the main path's matrix (100, 49) and Gram (60, 98) groups.  A block
+// of 256 threads walks its groups; q is padded to 64 with a zero block, so
+// every chain product is one 64 x 64 x 64 mma.sync (bf16 operands, f32
+// accumulation) per group, split over 8 warps.  The f32 state (A, T_2,
+// T_3, the Clenshaw pair) stays in the accumulator registers of the
+// thread that computed it; each operand goes to shared memory once,
+// rounded to bf16 when stored.  The covariance / Gram and xn xc^T products
+// (f32 operands) run on CUDA cores, 8x8 outputs per thread over a quarter
+// of the depth, and land in the same register layout; they are ~25% of a
+// Gram group's multiply-adds and set its operation bound.  One barrier per
+// chain step.
+//
+// The shared-memory design (`econ_filter_kernel`, group_mm.cuh) takes
+// every other shape (q > 64, poly_bf16 off, groups beyond shared memory):
+// the group's two patch blocks and seven q x q f32 matrices in shared
+// memory when they fit (~148 KB at stage 1, ~106 KB at stage 0 of the
+// iphone preset), the products on CUDA cores with a 2x2 tile of outputs
+// per thread, operands rounded to bf16 in registers.
 //
 // Groups beyond shared memory: the presets with pt=2 in the first pass
 // (K=100, p=98: 347 KB) and `couple_channels` (p = 3 x 49 or 3 x 98; up to
-// 515 KB) do not fit the 227 KB a block may use.  Of the two designs that
-// keep the arithmetic as it is, this kernel takes the one that changes no
-// cast point: the buffers are placed by priority (group_mm.cuh
+// 515 KB) do not fit the 227 KB a block may use.  Of the two layouts that
+// keep the arithmetic as it is, the shared-memory design takes the one
+// that changes no cast point: the buffers are placed by priority (group_mm.cuh
 // `plan_slots`), the most-read q x q matrices first, the patch blocks
 // last; a matrix that does not fit lives in the block's slice of a
 // workspace in device memory, and a patch block that does not fit is read
@@ -50,6 +65,7 @@
 // in bf16 instead would not make room (seven f32 q x q at q=98 are
 // already 269 KB, and A and T_3 are read in f32 by the Clenshaw sums).
 
+#include "econ_tc.cuh"
 #include "group_mm.cuh"
 
 namespace {
@@ -266,6 +282,355 @@ EconKernel pick_kernel(const vnlb::SlotPlan& pl) {
   return &econ_filter_kernel<true, true>;
 }
 
+// ---- the tensor-core design (econ_tc.cuh) ----
+
+namespace tc = vnlb::tc;
+using bf16 = __nv_bfloat16;
+
+// Dynamic shared memory of a tensor-core block for (K, p) groups, or 0
+// when the design does not take them (q > 64, a Gram route with p > 128,
+// or more than two blocks' worth of an SM).  Layout, in order:
+//   Gram route (K < p): xc^T, xn^T f32, p rows x kLdk each;
+//   matrix route:       xc f32, K rows x kLdk, then bf16(xn),
+//                       round_up(K, 16) rows x kLdb;
+//   then kNumBufs bf16 operand buffers of kBuf.
+// ops/econ_filter.py `tc_smem_bytes` mirrors this.
+int tc_smem(int K, int p) {
+  const int q = K < p ? K : p;
+  if (q > tc::kQ || q < 1) return 0;
+  long long n = (long long)tc::kNumBufs * tc::kBuf * 2;
+  if (K < p) {
+    if (tc::round_up(p, 8) > 2 * tc::kQ) return 0;
+    n += 2LL * p * tc::kLdk * 4;
+  } else {
+    n += (long long)K * tc::kLdk * 4 +
+         (long long)tc::round_up(K, 16) * tc::kLdb * 2;
+  }
+  return n <= tc::kSmemMax ? (int)n : 0;
+}
+
+// node tables (xs, proj, v0) a block copies to shared memory when they fit
+constexpr int kTab = 1536;
+
+// out[r][c] for the tile row of an application (see tc::mma_rows), rows
+// < K and columns < p: val(r, c, acc)
+template <class F>
+__device__ __forceinline__ void apply_rows(float* o, int K, int p, int m0,
+                                           int n0, int cnt,
+                                           const float c[8][4], F val) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (j >= cnt) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = m0 + (lane >> 2) + 8 * (e >> 1);
+      const int col = n0 + 8 * j + 2 * (lane & 3) + (e & 1);
+      if (r < K && col < p) o[r * p + col] = val(r, col, c[j][e]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(tc::kThreads, 2)
+econ_tc_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
+               float* __restrict__ out, int G, int K, int p, int m, int s,
+               int nodes, const float* __restrict__ xs,
+               const float* __restrict__ proj, const float* __restrict__ v0,
+               float tau, float lub_floor, float sb2, float s2, float cwg,
+               int smem_bytes) {
+  extern __shared__ __align__(16) unsigned char smraw[];
+  __shared__ float fv[kMaxNodes];
+  __shared__ float gam[kMaxCoef];
+  __shared__ float scal[2];  // lub, f0
+  __shared__ float rowpart[2][tc::kQ];
+  __shared__ float diagv[tc::kQ];
+  __shared__ float tab[kTab];
+
+  const bool gram = K < p;
+  const int q = gram ? K : p;
+  const int kp = K * p, ms = m * s, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int kt_q = (q + 15) / 16;
+  // Gram route: Xa = xc^T, Xb = xn^T (p rows); matrix route: Xa = xc
+  // (K rows), XnB = bf16(xn) (K rows); k-major, so row k holds the q
+  // output indices of the f32 products
+  float* Xa = reinterpret_cast<float*>(smraw);
+  float* Xb = Xa + (gram ? p : K) * tc::kLdk;
+  bf16* XnB = reinterpret_cast<bf16*>(Xb);
+  bf16* buf0 = reinterpret_cast<bf16*>(
+      gram ? Xb + p * tc::kLdk
+           : reinterpret_cast<float*>(XnB + tc::round_up(K, 16) * tc::kLdb));
+  bf16* buf1 = buf0 + tc::kBuf;
+  bf16* buf2 = buf1 + tc::kBuf;
+  bf16* buf3 = buf2 + tc::kBuf;
+  float* part = reinterpret_cast<float*>(buf0);  // syrk's slice sums
+  const tc::Pos ps;
+  const float invk = 1.f / (float)K;
+
+  // zero once: the pad rows and columns of the patch blocks are never
+  // written again; the node tables into shared memory when they fit
+  for (int e = tid; e < smem_bytes / 4; e += blockDim.x)
+    reinterpret_cast<float*>(smraw)[e] = 0.f;
+  const int n_tab = nodes * (ms + 1 + (v0 != nullptr));
+  if (n_tab <= kTab) {
+    for (int e = tid; e < n_tab; e += blockDim.x)
+      tab[e] = e < nodes ? xs[e]
+               : e < nodes * (ms + 1) ? proj[e - nodes]
+                                      : v0[e - nodes * (ms + 1)];
+    xs = tab;
+    proj = tab + nodes;
+    if (v0 != nullptr) v0 = tab + nodes * (ms + 1);
+  }
+  __syncthreads();
+
+  float A[16], T2[16], T3[16], hi[16], lo[16], P[16];
+
+  // the load loop walks e = tid + u kThreads with (r, c) = divmod(e, p)
+  const int dr = tc::kThreads / p, dc = tc::kThreads - dr * p;
+  for (int grp = blockIdx.x; grp < G; grp += gridDim.x) {
+    const size_t base = (size_t)grp * kp;
+    {
+      // kUnroll loads of each block in flight per thread: one round for
+      // the main path's groups (K p <= 6144)
+      constexpr int kUnroll = 24;
+      int r = tid / p, c = tid - (tid / p) * p;
+      for (int e0 = tid; e0 < kp; e0 += kUnroll * tc::kThreads) {
+        float a[kUnroll], b[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int e = e0 + u * tc::kThreads;
+          a[u] = e < kp ? xc[base + e] : 0.f;
+          b[u] = e < kp ? xn[base + e] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (e0 + u * tc::kThreads >= kp) break;
+          if (gram) {
+            Xa[c * tc::kLdk + r] = a[u];
+            Xb[c * tc::kLdk + r] = b[u];
+          } else {
+            Xa[r * tc::kLdk + c] = a[u];
+            XnB[r * tc::kLdb + c] = __float2bfloat16_rn(b[u]);
+          }
+          c += dc;
+          r += dr;
+          if (c >= p) {
+            c -= p;
+            ++r;
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // covariance (matrix route) or Gram (Gram route), f32 operands
+    tc::syrk(A, Xa, Xa, gram ? p : K, part, ps);
+#pragma unroll
+    for (int k = 0; k < 16; ++k) A[k] *= invk;
+
+    // lub = max(min(trace, max row |sum|), floor) * 1.02
+    {
+      float ra = 0.f, rb = 0.f;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        if (k & 2)
+          rb += fabsf(A[k]);
+        else
+          ra += fabsf(A[k]);
+        if (ps.row(k) == ps.col(k)) diagv[ps.row(k)] = A[k];
+      }
+      ra += __shfl_xor_sync(0xffffffffu, ra, 1);
+      rb += __shfl_xor_sync(0xffffffffu, rb, 1);
+      ra += __shfl_xor_sync(0xffffffffu, ra, 2);
+      rb += __shfl_xor_sync(0xffffffffu, rb, 2);
+      if ((lane & 3) == 0) {
+        rowpart[warp & 1][ps.r0] = ra;
+        rowpart[warp & 1][ps.r0 + 8] = rb;
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const float tr = vnlb::warp_sum(diagv[lane] + diagv[lane + 32]);
+      const float rs = vnlb::warp_max(
+          fmaxf(rowpart[0][lane] + rowpart[1][lane],
+                rowpart[0][lane + 32] + rowpart[1][lane + 32]));
+      if (lane == 0) scal[0] = fmaxf(fminf(tr, rs), lub_floor) * 1.02f;
+    }
+    __syncthreads();
+    const float lub = scal[0];
+
+    // transfer values at the scaled Chebyshev nodes, then gam and f0
+    for (int n = tid; n < nodes; n += blockDim.x) {
+      const float lam = (xs[n] + 1.f) * 0.5f * lub;
+      const float wg = cwg * sqrtf(tau * lub);
+      const float z = (lam - tau) / (wg / 4.4f);
+      const float gate = 1.f / (1.f + expf(-z));
+      const float lam_s = fmaxf(lam - sb2, 0.f);
+      fv[n] = gate * lam_s / (lam_s + s2);
+    }
+    __syncthreads();
+    // one warp per coefficient, the nodes over its lanes
+    for (int j = warp; j < ms + (v0 != nullptr); j += tc::kThreads / 32) {
+      float acc = 0.f;
+      for (int n = lane; n < nodes; n += 32)
+        acc = fmaf(fv[n], j < ms ? proj[n * ms + j] : v0[n], acc);
+      acc = vnlb::warp_sum(acc);
+      if (lane == 0) (j < ms ? gam[j] : scal[1]) = acc;
+    }
+
+    // A = M * (2 / lub) - I
+    const float sc = 2.f / lub;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) A[k] = A[k] * sc - tc::diag(ps, k, q);
+    tc::store_row(buf0, ps, [&](int k) { return A[k]; });
+    tc::store_colT(buf1, ps, [&](int k) { return A[k]; });
+    __syncthreads();
+
+    // A^2 into T2; then B = T_s(A) (B-side operand, buf2) and T_3
+    tc::mma_q(T2, buf0, buf1, kt_q);
+    __syncthreads();
+    if (s == 2) {
+      tc::store_colT(buf2, ps,
+                     [&](int k) { return 2.f * T2[k] - tc::diag(ps, k, q); });
+    } else {
+      tc::store_row(buf3, ps, [&](int k) {
+        return 4.f * T2[k] - 3.f * tc::diag(ps, k, q);
+      });
+      if (s == 4) {
+        tc::store_row(buf0, ps, [&](int k) { return T2[k]; });
+        tc::store_colT(buf2, ps, [&](int k) { return T2[k]; });
+      }
+      __syncthreads();
+      if (s == 4) {
+        tc::mma_q(P, buf0, buf2, kt_q);   // A^4
+        tc::mma_q(T3, buf3, buf1, kt_q);  // (4 A^2 - 3) A
+      } else {
+        tc::mma_q(P, buf3, buf1, kt_q);   // B = T_3(A)
+      }
+      __syncthreads();
+      if (s == 4)
+        tc::store_colT(buf2, ps, [&](int k) {
+          return 8.f * P[k] - 8.f * T2[k] + tc::diag(ps, k, q);
+        });
+      else
+        tc::store_colT(buf2, ps, [&](int k) { return P[k]; });
+    }
+#pragma unroll
+    for (int k = 0; k < 16; ++k) T2[k] = 2.f * T2[k] - tc::diag(ps, k, q);
+
+    // V_i = sum_r gam[i, r] T_r(A) at fragment element k
+    auto v_at = [&](int i, int k) -> float {
+      const float* g = gam + i * s;
+      float v = g[0] * tc::diag(ps, k, q);
+      v = v + g[1] * A[k];
+      if (s >= 3) v = v + g[2] * T2[k];
+      if (s == 4) v = v + g[3] * T3[k];
+      return v;
+    };
+
+    // Clenshaw in B over i = m-1 .. 1 (the first step has hi = 0); the hi
+    // operand alternates between buf0 and buf1, so one barrier per step
+#pragma unroll
+    for (int k = 0; k < 16; ++k) hi[k] = lo[k] = 0.f;
+    bf16* hbuf = buf0;
+    for (int i = m - 1; i >= 1; --i) {
+      if (i < m - 1) {
+        tc::store_row(hbuf, ps, [&](int k) { return hi[k]; });
+        __syncthreads();
+        tc::mma_q(P, hbuf, buf2, kt_q);
+        hbuf = hbuf == buf0 ? buf1 : buf0;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 16; ++k) P[k] = 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        const float nw = v_at(i, k) + 2.f * P[k] - lo[k];
+        lo[k] = hi[k];
+        hi[k] = nw;
+      }
+    }
+    // F = V_0 + hi B - lo, into P
+    if (m > 1) {
+      tc::store_row(hbuf, ps, [&](int k) { return hi[k]; });
+      __syncthreads();
+      tc::mma_q(P, hbuf, buf2, kt_q);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 16; ++k) P[k] = 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < 16; ++k) P[k] = v_at(0, k) + P[k] - lo[k];
+    __syncthreads();  // every operand buffer is free again
+
+    // applications in rows of m16n8 tiles: mt x ns units over the warps,
+    // a unit being one 16-row tile and a run of nh <= 8 column tiles
+    float* o = out + base;
+    const int mt = (K + 15) / 16, nt = (p + 7) / 8;
+    const int ns = mt >= 8 ? 1 : 8 / mt, nh = (nt + ns - 1) / ns;
+    if (!gram) {
+      // out = xn F
+      tc::store_colT(buf0, ps, [&](int k) { return P[k]; });
+      __syncthreads();
+      for (int u = warp; u < mt * ns; u += tc::kThreads / 32) {
+        const int mi = u / ns, n_lo = (u - mi * ns) * nh;
+        const int cnt = min(nh, nt - n_lo);
+        if (cnt <= 0) continue;
+        float c[8][4];
+        tc::mma_rows(c, XnB, 16 * mi, buf0, 8 * n_lo, cnt, kt_q);
+        apply_rows(o, K, p, 16 * mi, 8 * n_lo, cnt, c,
+                   [&](int, int, float v) { return v; });
+      }
+    } else {
+      // mh = xn xc^T (f32), t = mh F, out = f0 xn + t xc * 2/(K lub)
+      tc::syrk(A, Xb, Xa, p, part, ps);
+      tc::store_colT(buf0, ps, [&](int k) { return P[k]; });
+      tc::store_row(buf1, ps, [&](int k) { return A[k]; });
+      // bf16(xc)^T (p rows, K columns, zero beyond) over buf2 and buf3
+      for (int e = tid; e < p * tc::kQ; e += tc::kThreads)
+        buf2[(e >> 6) * tc::kLdb + (e & 63)] =
+            __float2bfloat16_rn(Xa[(e >> 6) * tc::kLdk + (e & 63)]);
+      __syncthreads();
+      tc::mma_q(P, buf1, buf0, kt_q);
+      __syncthreads();
+      tc::store_row(buf0, ps, [&](int k) { return P[k]; });
+      __syncthreads();
+      const float yscale = 2.f / ((float)K * lub), f0 = scal[1];
+      for (int u = warp; u < mt * ns; u += tc::kThreads / 32) {
+        const int mi = u / ns, n_lo = (u - mi * ns) * nh;
+        const int cnt = min(nh, nt - n_lo);
+        if (cnt <= 0) continue;
+        float c[8][4];
+        tc::mma_rows(c, buf0, 16 * mi, buf2, 8 * n_lo, cnt, kt_q);
+        apply_rows(o, K, p, 16 * mi, 8 * n_lo, cnt, c,
+                   [&](int r, int col, float v) {
+                     return f0 * Xb[col * tc::kLdk + r] + v * yscale;
+                   });
+      }
+    }
+    __syncthreads();  // the next group overwrites the patch blocks
+  }
+}
+
+// Blocks of a tensor-core launch: one per resident slot (at most G).
+int tc_grid(int G, int smem, int* grid, int* per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(
+      econ_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, occ = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, econ_tc_kernel,
+                                                      tc::kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (occ < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long slots = (long long)sms * occ;
+  *grid = (int)(slots < G ? slots : G);
+  if (per_sm != nullptr) *per_sm = occ;
+  return 0;
+}
+
 }  // namespace
 
 // Workspace floats one launch needs (0 when a group fits shared memory),
@@ -303,5 +668,39 @@ extern "C" int vnlb_econ_filter(const float* xc, const float* xn, float* out,
            (cudaStream_t)stream>>>(
       xc, xn, out, G, K, p, m, s, nodes, xs, proj, v0, tau, lub_floor, sb2,
       s2, cwg, rnd, pl, ws);
+  return (int)cudaGetLastError();
+}
+
+
+// Dynamic shared memory of the tensor-core design for (K, p) groups (0:
+// the design does not take them), and the blocks it keeps on one SM (0
+// when it does not take them); returns a cudaError_t.
+extern "C" int vnlb_econ_filter_tc_plan(int K, int p, int* smem,
+                                        int* per_sm) {
+  *smem = tc_smem(K, p);
+  *per_sm = 0;
+  if (*smem == 0) return 0;
+  int grid = 0;
+  return tc_grid(1, *smem, &grid, per_sm);
+}
+
+// The tensor-core design on (G, K, p) groups under poly_bf16 (arguments as
+// vnlb_econ_filter's); cudaErrorInvalidValue for a shape it does not take.
+extern "C" int vnlb_econ_filter_tc(const float* xc, const float* xn,
+                                   float* out, int G, int K, int p, int m,
+                                   int s, int nodes, const float* xs,
+                                   const float* proj, const float* v0,
+                                   float tau, float lub_floor, float sb2,
+                                   float s2, float cwg, void* stream) {
+  if (G <= 0) return 0;
+  const int smem = tc_smem(K, p);
+  if (smem == 0 || nodes > kMaxNodes || m * s > kMaxCoef || s < 2 || s > 4)
+    return (int)cudaErrorInvalidValue;
+  int grid = 0;
+  const int err = tc_grid(G, smem, &grid, nullptr);
+  if (err != 0) return err;
+  econ_tc_kernel<<<grid, tc::kThreads, smem, (cudaStream_t)stream>>>(
+      xc, xn, out, G, K, p, m, s, nodes, xs, proj, v0, tau, lub_floor, sb2,
+      s2, cwg, smem);
   return (int)cudaGetLastError();
 }

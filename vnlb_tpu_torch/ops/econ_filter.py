@@ -4,9 +4,16 @@
 (``econ_filter_plain`` = ops/polyspec.poly_filter_econ); a CUDA tensor
 launches the kernel, and a build or launch failure raises.  Nothing falls
 back.  ``econ_filter.launches`` counts kernel launches.
+
+The kernel has two designs (``design``): "tc", tensor cores for the chain
+with the f32 state in registers, for groups with q = min(K, p) <= 64 under
+``poly_bf16`` whose buffers leave two blocks per SM (``tc_smem_bytes``);
+"smem", the shared-memory design, for every other shape.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -20,6 +27,49 @@ __all__ = ["econ_filter", "econ_filter_plain", "econ_filter_kernel"]
 # (m*s coefficients, 2*m*s nodes) is far above the presets' (<= 32)
 MAX_NODES = 128
 MAX_COEF = 64
+
+# the tensor-core design's layout (csrc/econ_tc.cuh): q padded to TC_Q;
+# f32 k-major patch copies at a row stride of TC_LDK floats; TC_BUFS bf16
+# operand buffers of TC_Q rows at a stride of TC_LDB; at most TC_SMEM_MAX
+# bytes of dynamic shared memory per block
+TC_Q, TC_LDK, TC_LDB, TC_BUFS, TC_SMEM_MAX = 64, 68, 72, 4, 104 * 1024
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def tc_smem_bytes(k: int, p: int) -> int:
+    """Dynamic shared memory of a tensor-core block for (k, p) groups, or
+    0 when that design does not take them (csrc/econ_filter.cu
+    ``tc_smem``)."""
+    q = min(k, p)
+    if not 1 <= q <= TC_Q:
+        return 0
+    n = TC_BUFS * TC_Q * TC_LDB * 2
+    if k < p:
+        if _round_up(p, 8) > 2 * TC_Q:
+            return 0
+        n += 2 * p * TC_LDK * 4
+    else:
+        n += k * TC_LDK * 4 + _round_up(k, 16) * TC_LDB * 2
+    return n if n <= TC_SMEM_MAX else 0
+
+
+def design(k: int, p: int, rnd: bool) -> str:
+    """Which design of the kernel takes (k, p) groups: "tc" or "smem"."""
+    return "tc" if rnd and tc_smem_bytes(k, p) else "smem"
+
+
+def tc_plan(k: int, p: int) -> tuple[int, int]:
+    """(dynamic shared memory, blocks per SM) of the tensor-core design on
+    the card, from the kernel library; (0, 0) for a shape it does not
+    take."""
+    smem, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(_build.library().vnlb_econ_filter_tc_plan(
+        k, p, ctypes.byref(smem), ctypes.byref(per_sm)),
+        "econ_filter tc plan")
+    return smem.value, per_sm.value
 
 
 def _consts(cfg, k: int, p: int, device):
@@ -35,9 +85,11 @@ def _consts(cfg, k: int, p: int, device):
     return ep, xs.contiguous(), proj.contiguous(), v0
 
 
-def econ_filter_kernel(xc2: torch.Tensor, xn2: torch.Tensor, cfg
-                       ) -> torch.Tensor:
-    """Launch the CUDA kernel on (G, K, p) f32 CUDA tensors."""
+def econ_filter_kernel(xc2: torch.Tensor, xn2: torch.Tensor, cfg,
+                       smem_design: bool = False) -> torch.Tensor:
+    """Launch the CUDA kernel on (G, K, p) f32 CUDA tensors;
+    ``smem_design`` takes the shared-memory design whatever ``design``
+    says (to time both designs on the same inputs)."""
     if not (xc2.is_cuda and xn2.is_cuda):
         raise ValueError("econ_filter_kernel needs CUDA tensors")
     if xc2.dtype != torch.float32 or xn2.dtype != torch.float32:
@@ -56,20 +108,24 @@ def econ_filter_kernel(xc2: torch.Tensor, xn2: torch.Tensor, cfg
     if g == 0:
         return out
     lib = _build.library()
-    # groups beyond shared memory keep their spilled matrices in a
-    # per-block workspace (csrc/group_mm.cuh)
-    ws_n = int(lib.vnlb_econ_filter_ws(g, k, p))
-    _build.check(max(-ws_n, 0), "econ_filter workspace plan")
-    ws = (torch.empty((ws_n,), dtype=torch.float32, device=xc2.device)
-          if ws_n else None)
-    err = lib.vnlb_econ_filter(
-        xc2.data_ptr(), xn2.data_ptr(), out.data_ptr(), g, k, p,
-        ep["m"], ep["s"], ep["nodes"], xs.data_ptr(), proj.data_ptr(),
-        None if v0 is None else v0.data_ptr(),
-        float(ep["tau"]), float(1.5 * ep["tau"]), float(ep["sb2"]),
-        float(ep["s2"]), float(ep["cwg"]), int(ep["rnd"]),
-        None if ws is None else ws.data_ptr(),
-        torch.cuda.current_stream(xc2.device).cuda_stream)
+    stream = torch.cuda.current_stream(xc2.device).cuda_stream
+    args = (ep["m"], ep["s"], ep["nodes"], xs.data_ptr(), proj.data_ptr(),
+            None if v0 is None else v0.data_ptr(), float(ep["tau"]),
+            float(1.5 * ep["tau"]), float(ep["sb2"]), float(ep["s2"]),
+            float(ep["cwg"]))
+    if not smem_design and design(k, p, ep["rnd"]) == "tc":
+        err = lib.vnlb_econ_filter_tc(xc2.data_ptr(), xn2.data_ptr(),
+                                      out.data_ptr(), g, k, p, *args, stream)
+    else:
+        # groups beyond shared memory keep their spilled matrices in a
+        # per-block workspace (csrc/group_mm.cuh)
+        ws_n = int(lib.vnlb_econ_filter_ws(g, k, p))
+        _build.check(max(-ws_n, 0), "econ_filter workspace plan")
+        ws = (torch.empty((ws_n,), dtype=torch.float32, device=xc2.device)
+              if ws_n else None)
+        err = lib.vnlb_econ_filter(
+            xc2.data_ptr(), xn2.data_ptr(), out.data_ptr(), g, k, p, *args,
+            int(ep["rnd"]), None if ws is None else ws.data_ptr(), stream)
     _build.check(err, "econ_filter kernel")
     econ_filter.launches += 1
     return out

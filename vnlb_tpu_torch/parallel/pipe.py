@@ -22,8 +22,10 @@ import torch
 
 from ..config import VnlbConfig, default_config
 from ..streaming import host_inputs, pass_ctx, window_pass, windows
+from ..utils.precision import full_f32
 
 
+@full_f32()
 def denoise_pipelined(noisy, sigma: float, chunk: int = 12, flows=None,
                       preset: str = "iphone",
                       cfg: Optional[VnlbConfig] = None, devices=None,
@@ -39,8 +41,6 @@ def denoise_pipelined(noisy, sigma: float, chunk: int = 12, flows=None,
             "(ROADMAP.md, item 17: two disjoint process groups from one "
             "controller)")
     t0 = time.perf_counter()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     noisy, fflow, bflow, zflow = host_inputs(noisy, flows)
     t_len = noisy.shape[0]
     cfg = cfg or default_config(sigma, preset=preset)

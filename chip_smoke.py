@@ -4,8 +4,11 @@
     python3 chip_smoke.py
 
 Builds the kernels from vnlb_tpu_torch/csrc, checks each kernel against its
-plain PyTorch version at the shapes of the main paths, holds small-clip
-PSNRs of every preset and filter mode to the JAX package's, then runs the
+plain PyTorch version at the shapes of the main paths (K1 timed at each of
+its launch shapes, ``k1_cases``, beside its bound and its FP32 issue
+floor, with its launch plan held to the library's), holds small-clip
+PSNRs of every preset and filter mode, and of ``denoise_mod``, to the JAX
+package's, then runs the
 two-pass ``denoise`` on a 5x480x854 clip at sigma=20 seven ways and checks
 each output: the bench config (preset iphone, eig_method poly, step_s 6,
 border_mode mask, topk exact, zero flow), the API default (``denoise(noisy,
@@ -23,8 +26,9 @@ gloo world on the one card (``denoise_halo`` bitwise against the 2-strip
 composition, ``proc_nl_halo`` with the drift flow, ``denoise_sharded``,
 ``denoise_streaming(mesh=...)`` of a 12x480x854 clip).  K2's lines name
 the design each group shape takes (tensor cores or shared memory), and
-every 480p run through K2 logs K2's device time (CUDA events around each
-launch, in one extra run).  Every phase prints
+every 480p run logs K1's and K2's device time and launches (CUDA events
+around each launch, in one extra run); the API default's K1 launches are
+logged by shape (``k1_api_default``).  Every phase prints
 one line; any
 failure raises and the script exits nonzero.  The second-to-last line is the kernel table as JSON (each kernel's time, its
 plain version's and its bound: the larger of its bytes over the memory
@@ -77,6 +81,8 @@ REF_SMALL_MODES = {
     "topk_stream": (dict(topk="stream"), dict(basic=29.962152, deno=30.117215)),
     "topk_approx": (dict(topk="approx"), dict(basic=29.962152, deno=30.117215)),
 }
+# the same clip through denoise_mod (the four-pass variant pipeline)
+REF_SMALL_MOD = dict(basic=29.962574, deno=30.117078)
 # the all-rows search and the streaming run (24 frames: windows of 12 / 14
 # frames are strict sub-windows)
 DENSE_FULL = dict(dense_rows="full")
@@ -111,6 +117,35 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def clock_under(fn, reps):
+    """(median SM clock MHz, median power W) that nvidia-smi samples every
+    50 ms while ``fn`` runs ``reps`` times back to back."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-i", "0", "-lms", "50"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(0.2)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out = smi.communicate(timeout=30)[0]
+    rows = []
+    for ln in out.splitlines():
+        try:
+            rows.append([float(v) for v in ln.split(",")[:2]])
+        except ValueError:      # a field nvidia-smi reports as [N/A]
+            continue
+    # the samples of the loaded part: the last three quarters
+    rows = rows[len(rows) // 4:]
+    if not rows:
+        return float("nan"), float("nan")
+    return (float(np.median([r[0] for r in rows])),
+            float(np.median([r[1] for r in rows])))
 
 
 def tie_aware(name, vk, ik, vp, ip, tol):
@@ -152,6 +187,86 @@ def k1_work(sites, vid, scfg, starts=0, planes=7, cands=None):
     nbytes = (vid.numel() * 4 + sites.numel() * sites.element_size()
               + starts * planes * n * 4 + n * planes * scfg.w_s ** 2 * 4)
     return bound(flops, 0, nbytes)
+
+
+def k1_fp32_issue_ms(pairs, vid, scfg):
+    """The FP32 issue floor of K1: each term is an FADD and an FFMA, two
+    instructions on 132 SMs x 128 lanes at the 1.98 GHz boost clock."""
+    terms = pairs * scfg.w_s ** 2 * scfg.pt * vid.shape[1] * scfg.ps ** 2
+    return 2 * terms / (132 * 128 * 1.98e9) * 1e3
+
+
+def k1_cases(vt, yuv, bench, dev):
+    """[(name, stage config, args, window-start kwargs)]: K1 at the main
+    path's launch shapes on the 480p clip ``yuv``: a 4096-site chunk of the
+    API default's interior sites at stage 0 levels 0, 1, 2 and stage 1
+    level 0 (one launch per chunk and level), the window-start entry on
+    4096 border sites of each stage (uniform random starts inside the
+    frame), and the bench config's 46,046 stage-1 sites in one launch."""
+    from vnlb_tpu_torch.ops.mask import interior_split, lattice_sites
+    from vnlb_tpu_torch.ops.search import eff_dt_range, search_levels
+    from vnlb_tpu_torch.ops.search_dense import level_queries
+
+    shape = tuple(yuv.shape)
+    api = vt.default_config(SIGMA)
+    cases = []
+    for stage, lvls in ((0, (0, 1, 2)), (1, (0,))):
+        scfg = api.stage(stage)
+        lo, hi = eff_dt_range(scfg, shape[0])
+        n_dt = hi - lo + 1
+        levels = search_levels(yuv, scfg)
+        inner, border = interior_split(lattice_sites(shape, scfg), shape,
+                                       scfg)
+        sites = torch.from_numpy(inner[:4096]).to(dev).long()
+        for lvl in lvls:
+            v = levels[lvl]
+            # int32, as the wrapper hands them on: the timing then holds
+            # the kernel alone
+            q = [c.int() for c in level_queries(sites, lvl, v.shape[2],
+                                                v.shape[3], scfg)]
+            cases.append((f"s{stage}.l{lvl}", scfg,
+                          (v, *q, lo, n_dt, scfg.pt, scfg.ps, scfg.w_s), {}))
+        sites = torch.from_numpy(border[:4096]).to(dev).int()
+        rng = np.random.default_rng(stage)
+        starts = {k: torch.from_numpy(rng.integers(
+            0, n - scfg.ps - scfg.w_s + 2, (n_dt, sites.shape[0]))
+            .astype(np.int32)).to(dev) for k, n in (("sy", shape[2]),
+                                                    ("sx", shape[3]))}
+        cases.append((f"s{stage}.windows", scfg,
+                      (levels[0], sites[:, 0], sites[:, 1], sites[:, 2], lo,
+                       n_dt, scfg.pt, scfg.ps, scfg.w_s), starts))
+    s1 = bench.stage(1)
+    lo, hi = eff_dt_range(s1, shape[0])
+    sites = torch.from_numpy(lattice_sites(shape, s1)).to(dev).int()
+    cases.append(("s1.l0.bench_all", s1,
+                  (search_levels(yuv, s1)[0], sites[:, 0], sites[:, 1],
+                   sites[:, 2], lo, hi - lo + 1, s1.pt, s1.ps, s1.w_s), {}))
+    return cases
+
+
+def k1_api_phase(per, k1_shapes, api_cfg):
+    """The API default's K1 launches by shape (``per``: its timed run's
+    {(pt, C, level height, window starts): (device ms, launches)}) beside
+    each shape's standalone time and bound: one line per shape."""
+    heights = {H: 0, H // 2: 1, H // 4: 2}
+    total_ms = total_n = 0
+    for (pt, c, h, win), (ms, n) in sorted(per.items()):
+        stage = 0 if pt == api_cfg.stage(0).pt else 1
+        name = f"s{stage}.l{heights[h]}" + (".windows" if win else "")
+        timed = (f"s{stage}.windows" if win and heights[h] == 0
+                 else None if win else name)
+        extra = {}
+        if timed in k1_shapes:
+            kms, _, (bms, by), fp32_ms = k1_shapes[timed]
+            extra = dict(chunk_kernel_ms=f"{kms:.4f}",
+                         chunk_bound_ms=f"{bms:.4f}", bound_by=by,
+                         chunk_fp32_issue_ms=f"{fp32_ms:.4f}")
+        log("k1_api_default", shape=name,
+            level_rows=h, pt_c=pt * c, window_starts=win, launches=n,
+            device_ms=f"{ms:.3f}", **extra)
+        total_ms += ms
+        total_n += n
+    log("k1_api_default_total", launches=total_n, device_ms=f"{total_ms:.2f}")
 
 
 def econ_work(g, k, p, scfg):
@@ -217,9 +332,11 @@ def k3_launches(yuv, cfg):
 def e2e(vt, name, noisy, clean, dev, counters, expect, cfg=None,
         flows=None):
     """The main path at full size: one counted warmup run, best of 3 with a
-    bitwise repeat check, the output checks and the plain-version pass.
-    ``expect`` names the counters that must launch (the others must not).
-    Returns (launches, deno, basic)."""
+    bitwise repeat check, one run with CUDA events around each K1 and K2
+    launch, the output checks and the plain-version pass.  ``expect`` names
+    the counters that must launch (the others must not).  Returns
+    (launches, deno, basic, {(pt, C, level height, window starts): (K1
+    device ms, launches)} of the timed run)."""
     from vnlb_tpu_torch.utils.metrics import compute_psnr
 
     for c in counters:
@@ -251,16 +368,24 @@ def e2e(vt, name, noisy, clean, dev, counters, expect, cfg=None,
     p_basic = compute_psnr(basic_np, clean)
     p_deno = compute_psnr(deno_np, clean)
     best = min(times)
-    k2 = {}
-    if "econ_filter" in expect:
-        k2_s, k2_ms, k2_n = k2_timed_run(vt, noisy_t, dev, cfg, flows)
-        k2 = dict(k2_device_ms=f"{k2_ms:.1f}", k2_launches=k2_n,
-                  k2_run_seconds=f"{k2_s:.4f}",
-                  k2_share=f"{k2_ms / 1e3 / k2_s:.3f}")
+    timed, k1_shapes = {}, {}
+    if expect & {"econ_filter", "patch_dist"}:
+        run_s, per = timed_run(vt, noisy_t, dev, cfg, flows)
+        for kern, tag in (("econ_filter", "k2"), ("patch_dist", "k1")):
+            if kern not in expect:
+                continue
+            ms = sum(v[0] for k, v in per.items() if k[0] == kern)
+            n = sum(v[1] for k, v in per.items() if k[0] == kern)
+            timed.update({f"{tag}_device_ms": f"{ms:.1f}",
+                          f"{tag}_launches": n,
+                          f"{tag}_share": f"{ms / 1e3 / run_s:.3f}"})
+        timed["timed_run_seconds"] = f"{run_s:.4f}"
+        k1_shapes = {k[1:]: v for k, v in per.items()
+                     if k[0] == "patch_dist"}
     log(name, seconds=",".join(f"{t:.4f}" for t in times),
         fps=f"{T / best:.3f}", psnr_noisy=f"{p_noisy:.4f}",
         psnr_basic=f"{p_basic:.4f}", psnr_deno=f"{p_deno:.4f}",
-        peak_mem_gib=f"{peak / 2 ** 30:.3f}", repeat_bitwise=True, **k2)
+        peak_mem_gib=f"{peak / 2 ** 30:.3f}", repeat_bitwise=True, **timed)
     if not p_deno >= p_noisy + 6.0:
         raise AssertionError(f"{name}: deno {p_deno} < noisy {p_noisy} + 6")
 
@@ -276,28 +401,41 @@ def e2e(vt, name, noisy, clean, dev, counters, expect, cfg=None,
     if not (abs(pp_basic - p_basic) < 0.02 and abs(pp_deno - p_deno) < 0.02):
         raise AssertionError(f"{name}: kernel path and plain path differ by "
                              f">= 0.02 dB")
-    return launches, deno, basic
+    return launches, deno, basic, k1_shapes
 
 
-def k2_timed_run(vt, noisy_t, dev, cfg, flows):
-    """One more run of a path with CUDA events around each K2 launch:
-    (wall seconds, K2 device ms, K2 launches)."""
+def timed_run(vt, noisy_t, dev, cfg, flows):
+    """One more run of a path with CUDA events around each K2 and each K1
+    launch: (wall seconds, {(kernel, *shape key): (device ms, launches)});
+    K1's key is (pt, C, level height, window starts given)."""
     from vnlb_tpu_torch.ops.econ_filter import econ_filter
+    from vnlb_tpu_torch.ops.patch_dist import patch_dist
 
     events = []
 
-    def timed(xc, xn, scfg):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        out = econ_filter(xc, xn, scfg)
-        ev[1].record()
-        events.append(ev)
-        return out
+    def timing(fn, key):
+        def run(*a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            events.append((key(*a, **kw), ev))
+            return out
+        return run
 
-    kernels = vt.KERNELS._replace(econ_filter=timed)
+    kernels = vt.KERNELS._replace(
+        econ_filter=timing(econ_filter, lambda *a, **kw: ("econ_filter",)),
+        patch_dist=timing(patch_dist, lambda vid, qt, qy, qx, dt_lo, n_dt,
+                          pt, ps, w_s, sy=None, sx=None: (
+                              "patch_dist", pt, vid.shape[1], vid.shape[2],
+                              sy is not None)))
     _, _, sec = vt.denoise(noisy_t, SIGMA, flows=flows, cfg=cfg, device=dev,
                            kernels=kernels)
-    return sec, sum(a.elapsed_time(b) for a, b in events), len(events)
+    per = {}
+    for key, (a, b) in events:
+        ms, n = per.get(key, (0.0, 0))
+        per[key] = (ms + a.elapsed_time(b), n + 1)
+    return sec, per
 
 
 def assert_close(name, got, want):
@@ -367,12 +505,15 @@ def k1_tile_phase(yuv, shape, dev):
             pms = cuda_ms(lambda: patch_dist_tile_plain(*args), 1)
             bms, by = k1_work(sites, tile, scfg, planes=n_dt,
                               cands=int(fin.sum().item()))
+            fp32_ms = k1_fp32_issue_ms(sites.shape[0] * n_dt, tile, scfg)
             log("k1_tile", stage=stage, strip=strip,
                 tile=f"{tile.shape[2]}x{tile.shape[3]}",
                 base_row=strip * hs - halo, sites=sites.shape[0],
                 dt_planes=n_dt, inf_share=f"{1 - fin.float().mean().item():.4f}",
                 max_rel_err=f"{rel:.3g}", kernel_ms=f"{kms:.3f}",
-                plain_ms=f"{pms:.3f}", bound_ms=f"{bms:.4f}", bound_by=by)
+                plain_ms=f"{pms:.3f}", bound_ms=f"{bms:.4f}", bound_by=by,
+                over_bound=f"{kms / bms:.2f}",
+                fp32_issue_ms_all_cands=f"{fp32_ms:.4f}")
             if (stage, strip) == (1, 1):
                 record = (kms, pms, (bms, by))
             del got, want
@@ -667,8 +808,10 @@ def main():
     from vnlb_tpu_torch.ops.econ_filter import tc_plan as econ_tc_plan
     from vnlb_tpu_torch.ops.econ_filter import tc_smem_bytes
     from vnlb_tpu_torch.ops.mask import interior_split, lattice_sites
-    from vnlb_tpu_torch.ops.patch_dist import (patch_dist, patch_dist_plain,
+    from vnlb_tpu_torch.ops.patch_dist import (card_plan, patch_dist,
+                                               patch_dist_plain,
                                                patch_dist_tile)
+    from vnlb_tpu_torch.ops.patch_dist import plan as plan_k1
     from vnlb_tpu_torch.ops.patch_gather import (patch_gather,
                                                  patch_gather_plain)
     from vnlb_tpu_torch.ops.poly_filter import poly_filter, poly_filter_plain
@@ -744,16 +887,47 @@ def main():
         agree = tie_aware(f"K1 top-K {name}", vk, ik, vp, ip, tol)
         log("k1_topk", stage=name, sites=sites.shape[0],
             index_agreement=f"{agree:.6f}", mismatches_are_ties=True)
-    v_l = search_levels(yuv, s1)[0]
-    sites = torch.from_numpy(lattice_sites(shape, s1)).to(dev).long()
-    args = (v_l, sites[:, 0], sites[:, 1], sites[:, 2], -3, 7, s1.pt, s1.ps,
-            s1.w_s)
-    k1_ms = cuda_ms(lambda: patch_dist(*args), 5)
-    k1_plain_ms = cuda_ms(lambda: patch_dist_plain(*args), 1)
-    k1_bound = k1_work(sites, v_l, s1)
-    log("k1_time", shape=f"s1.l0 sites={sites.shape[0]} dt_planes=7",
-        kernel_ms=f"{k1_ms:.3f}", plain_ms=f"{k1_plain_ms:.3f}",
-        bound_ms=f"{k1_bound[0]:.4f}", bound_by=k1_bound[1])
+    k1_shapes = {}
+    for name, scfg, args, kw in k1_cases(vt, yuv, cfg, dev):
+        got = patch_dist(*args, **kw)
+        want = patch_dist_plain(*args, **kw)
+        torch.cuda.synchronize()
+        rel = rel_err(got, want)
+        k1_err = max(k1_err, (got - want).abs().max().item())
+        if not rel < 1e-5:
+            raise AssertionError(f"K1 {name}: max relative error {rel}")
+        vid, n_dt = args[0], args[5]
+        sites = torch.stack(args[1:4], 1)
+        kms = cuda_ms(lambda: patch_dist(*args, **kw), 10)
+        pms = cuda_ms(lambda: patch_dist_plain(*args, **kw), 1)
+        bms, by = k1_work(sites, vid, scfg, starts=2 * bool(kw),
+                          planes=n_dt)
+        fp32_ms = k1_fp32_issue_ms(sites.shape[0] * n_dt, vid, scfg)
+        k1_shapes[name] = (kms, pms, (bms, by), fp32_ms)
+        load = {}
+        if name == "s1.l0.bench_all":
+            mhz, watts = clock_under(lambda: patch_dist(*args, **kw), 400)
+            load = dict(sm_clock_mhz_under_load=f"{mhz:.0f}",
+                        power_w_under_load=f"{watts:.0f}",
+                        fp32_issue_ms_at_that_clock=f"{fp32_ms * 1980 / mhz:.4f}")
+        k1_plan, per_sm = card_plan(scfg.ps, scfg.w_s, sites.shape[0], n_dt)
+        if k1_plan != plan_k1(scfg.ps, scfg.w_s, sites.shape[0], n_dt) \
+                or per_sm < k1_plan["blocks_per_sm"]:
+            raise AssertionError(f"K1 {name}: the library's plan {k1_plan} "
+                                 f"({per_sm} blocks per SM) is not the "
+                                 f"wrapper's")
+        log("k1_time", shape=name, sites=sites.shape[0],
+            level=f"{vid.shape[2]}x{vid.shape[3]}", pt_c=scfg.pt * vid.shape[1],
+            dt_planes=n_dt, window_starts=bool(kw), max_rel_err=f"{rel:.3g}",
+            kernel_ms=f"{kms:.4f}", plain_ms=f"{pms:.3f}",
+            bound_ms=f"{bms:.4f}", bound_by=by,
+            over_bound=f"{kms / bms:.2f}", fp32_issue_ms=f"{fp32_ms:.4f}",
+            blocks_per_sm=per_sm, sites_per_group=k1_plan["sites_per_group"],
+            grid=f"{k1_plan['grid_x']}x{n_dt}", **load)
+        del got, want
+    # the cases' level videos stay out of the e2e peaks below
+    del args, kw, vid, sites
+    k1_ms, k1_plain_ms, k1_bound, _ = k1_shapes["s1.l0.bench_all"]
 
     # ---- 3b. K3 vs plain at the all-rows search's 480p shapes, dt=0
     # (every frame valid): stage 0 levels 0/1/2 (F=5, pt*C=1), stage 1
@@ -845,19 +1019,6 @@ def main():
         log("k1_windows", search=name, sites=sites.shape[0],
             levels=len(levels), max_rel_err=f"{rel:.3g}",
             index_agreement=f"{agree:.6f}", mismatches_are_ties=True)
-    sites = torch.from_numpy(lattice_sites(shape, a1)[:4096]).to(dev)
-    sy = torch.from_numpy(np.random.default_rng(0).integers(
-        0, H - a1.ps - a1.w_s + 2, (7, 4096)).astype(np.int32)).to(dev)
-    sx = torch.from_numpy(np.random.default_rng(1).integers(
-        0, W - a1.ps - a1.w_s + 2, (7, 4096)).astype(np.int32)).to(dev)
-    args = (v_l, sites[:, 0], sites[:, 1], sites[:, 2], -3, 7, a1.pt,
-            a1.ps, a1.w_s)
-    k1w_ms = cuda_ms(lambda: patch_dist(*args, sy=sy, sx=sx), 5)
-    k1w_plain_ms = cuda_ms(lambda: patch_dist_plain(*args, sy=sy, sx=sx), 1)
-    k1w_bound = k1_work(sites, v_l, a1, starts=2)
-    log("k1_windows_time", shape="s1.l0 sites=4096 dt_planes=7",
-        kernel_ms=f"{k1w_ms:.3f}", plain_ms=f"{k1w_plain_ms:.3f}",
-        bound_ms=f"{k1w_bound[0]:.4f}", bound_by=k1w_bound[1])
 
     # ---- 5. K4 vs plain at main-path shapes: one 4096-site chunk of the
     # API default's top-K, stage 0 (K=100, pt=1, one video) and stage 1
@@ -990,6 +1151,17 @@ def main():
             raise AssertionError(f"{name} PSNR {pb}/{pd} vs JAX {ref}")
         log(name, basic_psnr=f"{pb:.4f}", deno_psnr=f"{pd:.4f}",
             jax_cpu=f"{ref['basic']}/{ref['deno']}", seconds=f"{sec:.2f}")
+    d, b, sec = vt.denoise_mod(small_noisy, SIGMA, device=dev)
+    pb = compute_psnr(b.cpu().numpy(), small_clean)
+    pd = compute_psnr(d.cpu().numpy(), small_clean)
+    if not (abs(pb - REF_SMALL_MOD["basic"]) < 0.02
+            and abs(pd - REF_SMALL_MOD["deno"]) < 0.02):
+        raise AssertionError(f"denoise_mod PSNR {pb}/{pd} vs JAX "
+                             f"{REF_SMALL_MOD}")
+    log("small_clip_denoise_mod", basic_psnr=f"{pb:.4f}",
+        deno_psnr=f"{pd:.4f}",
+        jax_cpu=f"{REF_SMALL_MOD['basic']}/{REF_SMALL_MOD['deno']}",
+        seconds=f"{sec:.2f}")
 
     # ---- 8. end to end at 5x480x854: each main path with the launch
     # counts set to 0 just before it and read just after ----
@@ -1003,23 +1175,29 @@ def main():
              vt.default_config(SIGMA, poly_impl="pallas"), None),
             ("e2e_preset_default", k124,
              vt.default_config(SIGMA, preset="default"), None))
-    launches = {name: e2e(vt, name, noisy, clean, dev, counters, want,
-                          cfg=rcfg, flows=fl)[0]
-                for name, want, rcfg, fl in runs}
+    launches, k1_runs = {}, {}
+    for name, want, rcfg, fl in runs:
+        # only the counts and the K1 times: a run's outputs stay out of the
+        # next run's peak
+        out = e2e(vt, name, noisy, clean, dev, counters, want, cfg=rcfg,
+                  flows=fl)
+        launches[name], k1_runs[name] = out[0], out[3]
+        del out
     main_path = launches["e2e_api_zero"]
+    k1_api_phase(k1_runs["e2e_api_zero"], k1_shapes, api_cfg)
 
     # ---- 8b. the all-rows search: K3 for the interior sites (K1 for the
     # border sites), exact and streaming top-K ----
     full_cfg = vt.default_config(SIGMA, **DENSE_FULL)
     k1234 = k124 | {"dense_dist"}
-    launches["e2e_dense_full"], d_full, b_full = e2e(
+    launches["e2e_dense_full"], d_full, b_full, _ = e2e(
         vt, "e2e_dense_full", noisy, clean, dev, counters, k1234,
         cfg=full_cfg)
     want_k3 = k3_launches(yuv, full_cfg)
     if launches["e2e_dense_full"]["dense_dist"] != want_k3:
         raise AssertionError(f"e2e_dense_full: {launches['e2e_dense_full']}"
                              f" K3 launches, predicted {want_k3}")
-    launches["e2e_dense_full_stream"], d_str, b_str = e2e(
+    launches["e2e_dense_full_stream"], d_str, b_str, _ = e2e(
         vt, "e2e_dense_full_stream", noisy, clean, dev, counters, k1234,
         cfg=vt.default_config(SIGMA, topk="stream", **DENSE_FULL))
     if not (torch.equal(d_str, d_full) and torch.equal(b_str, b_full)):

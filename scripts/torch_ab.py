@@ -6,8 +6,14 @@ for parent/change comparisons on one CUDA card.
 
 Runs ``denoise`` on the 5x480x854 clip of chip_smoke.py (sigma 20) with the
 bench config and with the API default (zero flow): one warmup, then
-``runs`` (default 3) timed runs each, and prints one ``[ab]`` line per path
-with the walls, the best wall and the peak device memory.  Then times K2
+``runs`` (default 3; 0 skips the paths) timed runs each, and prints one
+``[ab]`` line per path with the walls, the best wall, the peak device
+memory, K1's device time in one more run (CUDA events around each launch,
+``chip_smoke.timed_run``) and a SHA-256 of ``deno`` and of ``basic``.  Then times K1 (``patch_dist``)
+at the main path's launch shapes (a 4096-site chunk of the API default's
+interior sites at stage 0 levels 0, 1, 2 and stage 1 level 0, the bench
+config's 46,046 stage-1 sites, and the window-start entry on 4096 sites of
+each stage: ``chip_smoke.k1_cases``), then K2
 (``econ_filter``) on the main path's two group shapes (12,288 groups of
 (100, 49) and of (60, 98)), on the same without poly_bf16, on the shapes
 beyond the tensor-core design ((100, 98) of preset ``default``, the
@@ -22,6 +28,7 @@ parent, change, change, parent in one call, e.g.
            python3 scripts/torch_ab.py build/ab/parent parent'
 """
 
+import hashlib
 import os
 import sys
 
@@ -32,6 +39,10 @@ import torch
 def main():
     root, tag = os.path.abspath(sys.argv[1]), sys.argv[2]
     runs = int(sys.argv[3]) if len(sys.argv) > 3 else 3
+    # chip_smoke's shapes and timed run from this repository, the package
+    # under test from ``root``
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
     sys.path.insert(0, root)
     import vnlb_tpu_torch as vt
     from vnlb_tpu_torch import _build
@@ -47,16 +58,41 @@ def main():
     noisy = torch.from_numpy(add_noise(clean, 20.0, seed=1)).to(dev)
     bench = vt.default_config(20.0, preset="iphone", eig_method="poly",
                               step_s=6, border_mode="mask", topk="exact")
+    from chip_smoke import k1_cases, timed_run
+
     for name, cfg in (("bench", bench), ("api_zero", None)):
-        vt.denoise(noisy, 20.0, cfg=cfg, device=dev)
+        if not runs:
+            break
+        deno, basic, _ = vt.denoise(noisy, 20.0, cfg=cfg, device=dev)
         walls = []
         for _ in range(runs):
             torch.cuda.reset_peak_memory_stats(dev)
             walls.append(vt.denoise(noisy, 20.0, cfg=cfg, device=dev)[2])
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        _, per = timed_run(vt, noisy, dev, cfg, None)
+        k1 = [v for k, v in per.items() if k[0] == "patch_dist"]
+        k1_ms, k1_n = sum(v[0] for v in k1), sum(v[1] for v in k1)
+        sha = {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()[:16]
+               for k, v in (("deno", deno), ("basic", basic))}
         print(f"[ab] tag={tag} path={name} seconds="
               f"{','.join(f'{t:.4f}' for t in walls)} best={min(walls):.4f} "
-              f"peak_gib={peak:.3f}", flush=True)
+              f"peak_gib={peak:.3f} k1_device_ms={k1_ms:.2f} "
+              f"k1_launches={k1_n} sha_deno={sha['deno']} "
+              f"sha_basic={sha['basic']}", flush=True)
+    from vnlb_tpu_torch.ops import color
+    from vnlb_tpu_torch.ops.patch_dist import patch_dist
+
+    for name, _, args, kw in k1_cases(vt, color.rgb2yuv(noisy), bench, dev):
+        patch_dist(*args, **kw)
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(10):
+            patch_dist(*args, **kw)
+        stop.record()
+        torch.cuda.synchronize()
+        print(f"[ab] tag={tag} path=k1_{name} sites={args[1].shape[0]} "
+              f"planes={args[5]} ms={start.elapsed_time(stop) / 10:.4f}",
+              flush=True)
     from vnlb_tpu_torch.ops.econ_filter import econ_filter
     from vnlb_tpu_torch.ops.poly_filter import poly_filter
 
@@ -92,6 +128,8 @@ def main():
         print(f"[ab] tag={tag} path={name} "
               f"ms={start.elapsed_time(stop) / reps:.4f}", flush=True)
         del xc, xn
+
+
 
 if __name__ == "__main__":
     main()

@@ -19,9 +19,10 @@ from vnlb_tpu_torch.ops.econ_filter import (design, econ_filter,
                                             econ_filter_plain, tc_plan,
                                             tc_smem_bytes)
 from vnlb_tpu_torch.ops.mask import lattice_sites
-from vnlb_tpu_torch.ops.patch_dist import (patch_dist, patch_dist_plain,
-                                           patch_dist_tile,
+from vnlb_tpu_torch.ops.patch_dist import (card_plan, patch_dist,
+                                           patch_dist_plain, patch_dist_tile,
                                            patch_dist_tile_plain, tile_oob)
+from vnlb_tpu_torch.ops.patch_dist import plan as k1_plan
 from vnlb_tpu_torch.ops.patch_gather import patch_gather, patch_gather_plain
 from vnlb_tpu_torch.ops.poly_filter import poly_filter, poly_filter_plain
 from vnlb_tpu_torch.ops.search import (_window_starts, eff_dt_range,
@@ -86,6 +87,120 @@ def test_patch_dist_window_starts_match_plain(card, stage):
     assert patch_dist.launches == before + 1
     assert torch.allclose(got, want, rtol=1e-5, atol=1e-2)
     assert not torch.allclose(got, patch_dist(*args), rtol=1e-5, atol=1e-2)
+
+
+def _k1_rel(got, want):
+    """chip_smoke.py's K1 criterion: max |d| / max(|want|, 1)."""
+    return ((got - want).abs() / want.abs().clamp(min=1.0)).max().item()
+
+
+def _k1_video(rng, t_len, c, h, w, card):
+    return torch.from_numpy(rng.uniform(0, 255, (t_len, c, h, w))
+                            .astype(np.float32)).to(card)
+
+
+def _k1_sites(rng, s_cnt, t_len, h, w, ps, card):
+    """``s_cnt`` query corners: the four frame corners first, then random
+    ones over the whole frame."""
+    corners = [(0, 0, 0), (t_len - 1, 0, w - ps), (0, h - ps, 0),
+               (t_len - 1, h - ps, w - ps)]
+    rest = np.stack([rng.integers(0, t_len, s_cnt),
+                     rng.integers(0, h - ps + 1, s_cnt),
+                     rng.integers(0, w - ps + 1, s_cnt)], 1)
+    sites = np.concatenate([np.array(corners), rest])[:s_cnt]
+    return torch.from_numpy(sites.astype(np.int32)).to(card)
+
+
+# (pt, C, w_s): every preset's (pt * dist_chnls, w_s) and pt*C = 3
+K1_SHAPES = [(1, 1, 15), (1, 3, 15), (2, 3, 15), (2, 1, 27), (2, 3, 27),
+             (1, 1, 27)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pt,c,w_s", K1_SHAPES)
+@pytest.mark.parametrize("s_cnt", [1, 4, 389])
+def test_patch_dist_shapes_match_plain(card, pt, c, w_s, s_cnt):
+    """K1 at every preset's plane count and window, S = 1 and S that is
+    no multiple of the pairs per block, the frame corners among the sites,
+    dt planes whose frames fall outside [0, T) (dt_lo = -T); a repeat
+    launch is bitwise equal."""
+    rng = np.random.default_rng(s_cnt + 10 * w_s + pt * c)
+    t_len, h, w = 4, 40, 46
+    vid = _k1_video(rng, t_len, c, h, w, card)
+    sites = _k1_sites(rng, s_cnt, t_len, h, w, 7, card)
+    args = (vid, sites[:, 0], sites[:, 1], sites[:, 2], -t_len, 2 * t_len,
+            pt, 7, w_s)
+    before = patch_dist.launches
+    got = patch_dist(*args)
+    want = patch_dist_plain(*args)
+    torch.cuda.synchronize()
+    assert patch_dist.launches == before + 1
+    assert _k1_rel(got, want) < 1e-5
+    assert torch.equal(patch_dist(*args), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pt,c,w_s", K1_SHAPES)
+def test_patch_dist_window_starts_outside_frame(card, pt, c, w_s):
+    """Window starts partly or wholly outside the frame read zeros there,
+    as the plain version does."""
+    rng = np.random.default_rng(w_s + pt * c)
+    t_len, h, w = 5, 36, 40
+    vid = _k1_video(rng, t_len, c, h, w, card)
+    sites = _k1_sites(rng, 203, t_len, h, w, 7, card)
+    n_dt = 5
+    sy, sx = (torch.from_numpy(rng.integers(-w_s - 8, n + 8, (n_dt, 203))
+                               .astype(np.int32)).to(card) for n in (h, w))
+    args = (vid, sites[:, 0], sites[:, 1], sites[:, 2], -2, n_dt, pt, 7, w_s)
+    got = patch_dist(*args, sy=sy, sx=sx)
+    want = patch_dist_plain(*args, sy=sy, sx=sx)
+    torch.cuda.synchronize()
+    assert _k1_rel(got, want) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_s", [15, 27])
+@pytest.mark.parametrize("base_row,hp_g,wp_g", [(-9, 20, 31), (13, 40, 17),
+                                                 (-3, 9, 40)])
+def test_patch_dist_tile_straddles_frame_edge(card, w_s, base_row, hp_g,
+                                              wp_g):
+    """A global frame whose edges cut through the micro-tiles (3 x 5
+    candidates): +inf at exactly ``tile_oob``, the other values as the
+    plain version's."""
+    rng = np.random.default_rng(w_s - base_row)
+    t_len, h, w = 4, 44, 48
+    vid = _k1_video(rng, t_len, 3, h, w, card)
+    sites = _k1_sites(rng, 157, t_len, h, w, 7, card)
+    args = (vid, sites[:, 0], sites[:, 1], sites[:, 2], -2, 4, 2, 7, w_s,
+            base_row, hp_g, wp_g)
+    got = patch_dist_tile(*args)
+    want = patch_dist_tile_plain(*args)
+    torch.cuda.synchronize()
+    bad = tile_oob(sites[:, 1], sites[:, 2], w_s, base_row, hp_g, wp_g)
+    assert bad.any() and not bad.all()
+    assert torch.equal(torch.isinf(got), bad[None].expand_as(got))
+    fin = ~bad[None].expand_as(got)
+    assert _k1_rel(got[fin], want[fin]) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps,w_s,s_cnt,n_dt", [
+    (7, 15, 4096, 9), (7, 15, 46046, 7), (7, 27, 4096, 13), (7, 15, 1, 1),
+    (5, 21, 389, 3), (3, 9, 1000, 2)])
+def test_patch_dist_plan_matches_library(card, ps, w_s, s_cnt, n_dt):
+    """ops/patch_dist.plan mirrors the library's launch plan, and the card
+    grants the blocks per SM the plan claims."""
+    got, per_sm = card_plan(ps, w_s, s_cnt, n_dt)
+    assert got == k1_plan(ps, w_s, s_cnt, n_dt)
+    assert per_sm >= got["blocks_per_sm"]
+
+
+@pytest.mark.cuda
+def test_patch_dist_refuses_unbuilt_patch_size(card):
+    vid = torch.zeros((3, 1, 30, 30), device=card)
+    q = torch.zeros(4, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="ps=9"):
+        patch_dist(vid, q, q, q, 0, 1, 1, 9, 15)
 
 
 @pytest.mark.cuda

@@ -137,11 +137,24 @@ def test_port_imports_without_jax():
             "vnlb_tpu_torch.parallel.comm, "
             "vnlb_tpu_torch.parallel.launch, vnlb_tpu_torch.parallel.halo, "
             "vnlb_tpu_torch.parallel.tiled, vnlb_tpu_torch.parallel.tp, "
-            "vnlb_tpu_torch.parallel.pipe; "
+            "vnlb_tpu_torch.parallel.pipe, vnlb_tpu_torch.utils.video_io; "
             "assert callable(vnlb_tpu_torch.denoise_streaming); "
+            "assert callable(vnlb_tpu_torch.denoise_mod); "
+            "assert callable(vnlb_tpu_torch.proc_nn); "
+            "assert 'PIL' not in sys.modules; "
             "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'vnlb_tpu.')) for m in sys.modules if sys.modules[m] is not None)")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_video_io_is_the_original():
+    """utils/video_io.py is a copy of vnlb_tpu/utils/video_io.py, byte for
+    byte (it imports neither jax nor anything of vnlb_tpu; PIL only inside
+    its functions)."""
+    port = os.path.join(REPO, "vnlb_tpu_torch", "utils", "video_io.py")
+    orig = os.path.join(REPO, "vnlb_tpu", "utils", "video_io.py")
+    with open(port, "rb") as a, open(orig, "rb") as b:
+        assert a.read() == b.read()

@@ -13,7 +13,8 @@ bench config, with zero or user-given flow, both dense row modes (the
 lattice-row search on K1, ``dense_rows="full"`` on K3), every top-K mode
 and every Bayes-filter mode (``eig_method`` poly / xla / jacobi /
 rational, the econ and two-factor polynomial filters, ``couple_channels``,
-``deno="ave"``), ``denoise_streaming``, and ``parallel/`` over
+``deno="ave"``), ``denoise_streaming``, ``denoise_mod``, the cached-result
+readers ``proc_nl_cache`` and ``proc_nn``, and ``parallel/`` over
 ``torch.distributed``: the halo-sharded pass on K1's tile entry
 (``denoise_halo``, ``proc_nl_halo``, ``strip_runner``,
 ``denoise_streaming(mesh=...)``), site parallelism (``denoise_sharded``),
@@ -22,13 +23,15 @@ over two devices.  Other configurations raise NotImplementedError naming
 their ROADMAP item.
 """
 
-from .api import denoise, denoise_streaming
+from .api import (denoise, denoise_mod, denoise_streaming, proc_nl_cache,
+                  proc_nn)
 from .config import StageConfig, VnlbConfig, config_from_jax, default_config
 from .pipeline import KERNELS, PLAIN, Kernels, proc_nl
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "denoise", "denoise_streaming", "proc_nl", "StageConfig", "VnlbConfig", "default_config",
-    "config_from_jax", "Kernels", "KERNELS", "PLAIN",
+    "denoise", "denoise_mod", "denoise_streaming", "proc_nl",
+    "proc_nl_cache", "proc_nn", "StageConfig", "VnlbConfig",
+    "default_config", "config_from_jax", "Kernels", "KERNELS", "PLAIN",
 ]

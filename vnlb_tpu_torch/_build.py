@@ -36,6 +36,7 @@ SIGNATURES = {
                          _I, _I, _I, _I, _P, _P], _I),
     "vnlb_patch_dist_tile": ([_P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I,
                               _I, _I, _I, _I, _I, _I, _P, _P], _I),
+    "vnlb_patch_dist_plan": ([_I, _I, _I, _I, _P], _I),
     "vnlb_econ_filter": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                           _F, _F, _F, _F, _F, _I, _P, _P], _I),
     "vnlb_econ_filter_ws": ([_I, _I, _I], ctypes.c_longlong),

@@ -23,10 +23,16 @@ global row ``base_row``, and a candidate whose GLOBAL corner lies outside
 takes the plain version; a CUDA tensor launches the kernel, and a build or
 launch failure raises.  ``patch_dist.launches`` and
 ``patch_dist_tile.launches`` count kernel launches.
+
+``plan`` mirrors the kernel's launch arithmetic (register-tiled
+candidates, several (site, dt) pairs per block, double-buffered planes;
+the design is described in csrc/patch_dist.cu); ``card_plan`` asks the
+kernel library for the same plan and the occupancy the card grants.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -34,10 +40,69 @@ import torch
 from .. import _build
 
 __all__ = ["patch_dist", "patch_dist_plain", "patch_dist_kernel",
-           "patch_dist_tile", "patch_dist_tile_plain", "tile_oob"]
+           "patch_dist_tile", "patch_dist_tile_plain", "tile_oob", "plan",
+           "card_plan", "PLAN_FIELDS"]
 
 # sites per chunk of the plain version (bounds its gathered regions)
 _PLAIN_CHUNK = 4096
+
+# the kernel's constants (csrc/patch_dist.cu)
+MICRO_ROWS, MICRO_COLS = 3, 5     # candidates of a thread's micro-tile
+MAX_THREADS = 256
+BLOCKS_PER_SM = 2                 # __launch_bounds__ minimum
+MAX_SITES_PER_GROUP = 4
+WAVE_BLOCKS = 132 * BLOCKS_PER_SM * 4
+PATCH_SIZES = (3, 5, 7)           # ps the kernel is instantiated for
+PLAN_FIELDS = ("threads", "lanes", "pairs_per_block", "sites_per_group",
+               "micro_rows", "micro_cols", "tiles_down", "tiles_across",
+               "region_rows", "region_cols", "smem_bytes", "blocks_per_sm",
+               "grid_x")
+
+
+def plan(ps: int, w_s: int, s_cnt: int, n_dt: int) -> dict:
+    """The kernel's launch plan (csrc/patch_dist.cu ``make_plan``) for
+    ``s_cnt`` sites and ``n_dt`` planes: a group of ``lanes`` threads
+    (tiles_down x tiles_across of them owning a micro_rows x micro_cols
+    tile of candidates, all of them copying) serves one (site, dt) pair; a
+    block holds pairs_per_block groups and each group walks
+    sites_per_group sites; blockIdx.y is the dt plane.  Shared memory
+    holds a double buffer of one padded region plane and one query patch
+    per group, whatever pt*C is.  Raises ValueError for a shape the kernel
+    does not take."""
+    if ps not in PATCH_SIZES:
+        raise ValueError(f"patch_dist kernel: ps={ps} not in {PATCH_SIZES}")
+    n_a = -(-w_s // MICRO_ROWS)
+    n_b = -(-w_s // MICRO_COLS)
+    if w_s < 1 or n_a * n_b > MAX_THREADS:
+        raise ValueError(f"patch_dist kernel: w_s={w_s} needs more than "
+                         f"{MAX_THREADS} threads per pair")
+    lanes = 16 if n_a * n_b <= 16 else -(-n_a * n_b // 32) * 32
+    groups = MAX_THREADS // lanes
+    rows, cols = n_a * MICRO_ROWS + ps - 1, n_b * MICRO_COLS + ps - 1
+    if cols > 2 * lanes:      # a lane copies at most two columns of a row
+        raise ValueError(f"patch_dist kernel: w_s={w_s} gives region rows "
+                         f"of {cols} > 2 x {lanes} lanes")
+    m = min(max(s_cnt * n_dt // (groups * WAVE_BLOCKS), 1),
+            MAX_SITES_PER_GROUP)
+    stride = (rows * cols + -(-ps * ps // 4) * 4 + 15) // 32 * 32 + 16
+    return dict(threads=groups * lanes, lanes=lanes, pairs_per_block=groups,
+                sites_per_group=m, micro_rows=MICRO_ROWS,
+                micro_cols=MICRO_COLS, tiles_down=n_a, tiles_across=n_b,
+                region_rows=rows, region_cols=cols,
+                smem_bytes=2 * groups * stride * 4,
+                blocks_per_sm=BLOCKS_PER_SM,
+                grid_x=-(-s_cnt // (groups * m)))
+
+
+def card_plan(ps: int, w_s: int, s_cnt: int, n_dt: int
+              ) -> tuple[dict, int]:
+    """(the kernel library's plan, the blocks per SM the card grants the
+    dense entry at it); needs the CUDA build."""
+    buf = (ctypes.c_int * 14)()
+    _build.check(_build.library().vnlb_patch_dist_plan(ps, w_s, s_cnt, n_dt,
+                                                       buf),
+                 "patch_dist plan")
+    return dict(zip(PLAN_FIELDS, buf[:13])), buf[13]
 
 
 def _check(vid, qt, qy, qx, n_dt, sy, sx):
@@ -117,6 +182,7 @@ def patch_dist_kernel(vid: torch.Tensor, qt: torch.Tensor, qy: torch.Tensor,
     ints = [qt, qy, qx] + ([] if sy is None else [sy, sx])
     if not (vid.is_cuda and all(v.is_cuda for v in ints)):
         raise ValueError("patch_dist_kernel needs CUDA tensors")
+    plan(ps, w_s, qt.shape[0], n_dt)
     t_len, c, h, w = vid.shape
     vid = vid.contiguous()
     ints = [v.to(torch.int32).contiguous() for v in ints]
@@ -188,6 +254,7 @@ def patch_dist_tile_kernel(vid: torch.Tensor, qt: torch.Tensor,
     _check(vid, qt, qy, qx, n_dt, None, None)
     if not (vid.is_cuda and qt.is_cuda and qy.is_cuda and qx.is_cuda):
         raise ValueError("patch_dist_tile_kernel needs CUDA tensors")
+    plan(ps, w_s, qt.shape[0], n_dt)
     t_len, c, h, w = vid.shape
     vid = vid.contiguous()
     ints = [v.to(torch.int32).contiguous() for v in (qt, qy, qx)]

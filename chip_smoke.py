@@ -14,8 +14,9 @@ each output: the bench config (preset iphone, eig_method poly, step_s 6,
 border_mode mask, topk exact, zero flow), the API default (``denoise(noisy,
 sigma)`` with no cfg: step_s 3, sliding borders) with zero flow and with
 the clip's own drift flow, the API default with ``poly_impl="pallas"``
-(kernel K5 in both passes) and the ``default`` preset (w_s=27, pt=2 in
-the first pass: K2 on groups beyond shared memory), the API default with
+(kernel K5's tensor-core design in both passes) and the ``default`` preset
+(w_s=27, pt=2 in the first pass: K2's wide tensor-core design on (100,
+98) groups), the API default with
 the all-rows dense search (``dense_rows="full"``: kernel K3) and the exact
 and the streaming top-K; then ``denoise_streaming`` of a 24x480x854 clip
 against the whole-clip ``denoise``.  Then the halo-sharded pass
@@ -24,8 +25,11 @@ on the strips of a 4-strip split, the one-card strip runner over all four
 strips of both passes against the mask-border ``proc_nl``, and a 2-rank
 gloo world on the one card (``denoise_halo`` bitwise against the 2-strip
 composition, ``proc_nl_halo`` with the drift flow, ``denoise_sharded``,
-``denoise_streaming(mesh=...)`` of a 12x480x854 clip).  K2's lines name
-the design each group shape takes (tensor cores or shared memory), and
+``denoise_streaming(mesh=...)`` of a 12x480x854 clip).  K2's and K5's
+lines name the design each group shape takes (tensor cores at width 64 or
+128, or shared memory), a tensor-core design's plan against its Python
+mirror and its stated blocks per SM, and the old design's time on the
+same inputs; each group shape's repeat run is bitwise equal; and
 every 480p run logs K1's and K2's device time and launches (CUDA events
 around each launch, in one extra run); the API default's K1 launches are
 logged by shape (``k1_api_default``).  Every phase prints
@@ -341,12 +345,17 @@ def e2e(vt, name, noisy, clean, dev, counters, expect, cfg=None,
 
     for c in counters:
         c.launches = 0
+        for kind in getattr(c, "by_design", {}):
+            c.by_design[kind] = 0
     deno, basic, first_s = vt.denoise(noisy, SIGMA, flows=flows, cfg=cfg,
                                       device=dev)
     launches = {c.__name__: c.launches for c in counters}
     if any((n > 0) != (c in expect) for c, n in launches.items()):
         raise AssertionError(f"{name}: launches {launches}, expected "
                              f"kernels {sorted(expect)}")
+    # the launches of each design of a kernel with several ("econ_filter.tcw")
+    launches.update({f"{c.__name__}.{kind}": n for c in counters
+                     for kind, n in getattr(c, "by_design", {}).items()})
     log(f"{name}_warmup", seconds=f"{first_s:.3f}", **launches)
 
     noisy_t = torch.from_numpy(noisy).to(dev)
@@ -801,12 +810,14 @@ def main():
     from vnlb_tpu_torch.ops import color
     from vnlb_tpu_torch.ops.dense_dist import (_box_ps, dense_dist,
                                                dense_dist_plain)
+    from vnlb_tpu_torch.ops import poly_filter as k5
+    from vnlb_tpu_torch.ops.econ_filter import BLOCKS_PER_SM as K2_BLOCKS
     from vnlb_tpu_torch.ops.econ_filter import design as econ_design
     from vnlb_tpu_torch.ops.econ_filter import (econ_filter,
                                                 econ_filter_kernel,
-                                                econ_filter_plain)
+                                                econ_filter_plain,
+                                                smem_bytes)
     from vnlb_tpu_torch.ops.econ_filter import tc_plan as econ_tc_plan
-    from vnlb_tpu_torch.ops.econ_filter import tc_smem_bytes
     from vnlb_tpu_torch.ops.mask import interior_split, lattice_sites
     from vnlb_tpu_torch.ops.patch_dist import (card_plan, patch_dist,
                                                patch_dist_plain,
@@ -1068,6 +1079,7 @@ def main():
         xn = torch.from_numpy(base + rng.normal(size=(g, k, p))
                               .astype(np.float32) * 20).to(dev)
         got = fn(xc, xn, scfg)
+        again = fn(xc, xn, scfg)
         want = plain(xc, xn, scfg)
         torch.cuda.synchronize()
         scale = want.abs().mean().item()
@@ -1075,6 +1087,9 @@ def main():
         err = (got - want).abs().max().item()
         if not (rms < tol and torch.isfinite(got).all()):
             raise AssertionError(f"{tag} G={g} ({k}, {p}): rms/scale {rms}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{tag} G={g} ({k}, {p}): a repeat run is "
+                                 f"not bitwise equal")
         kms = cuda_ms(lambda: fn(xc, xn, scfg), reps)
         pms = cuda_ms(lambda: plain(xc, xn, scfg), reps)
         bms, by = bound(*work(g, k, p, scfg))
@@ -1086,7 +1101,7 @@ def main():
         return err, (kms, pms, (bms, by))
 
     k2_err = 0.0
-    k2_times = {}
+    k2_times, k2_errs = {}, {}
     rng = np.random.default_rng(0)
     dflt0 = vt.default_config(SIGMA, preset="default").stage(0)
     k2_cases = [(g, name, scfg, scfg.npatches, scfg.pdim)
@@ -1101,36 +1116,59 @@ def main():
                   100, 49),
                  (3 * 4096, "gram(s1) f32", s1.replace(poly_bf16=False),
                   60, 98)]
+    def tc_tags(tag, kind, plan, mirror, blocks):
+        """A tensor-core design's plan on the card against its Python
+        mirror and its stated blocks per SM."""
+        smem, per_sm = plan
+        if per_sm < blocks or smem != mirror:
+            raise AssertionError(f"{tag}: {per_sm} blocks per SM and {smem}"
+                                 f" bytes; the wrapper's plan: {blocks} and "
+                                 f"{mirror}")
+        return dict(design=kind, smem_bytes=smem, blocks_per_sm=per_sm,
+                    blocks_stated=blocks)
+
     for g, name, scfg, k, p in k2_cases:
-        # the design the shape takes; beside the tensor-core design, the
+        # the design the shape takes; beside a tensor-core design, the
         # shared-memory design on the same inputs
         kind = econ_design(k, p, scfg.poly_bf16)
         tags, beside = dict(design=kind), None
-        if kind == "tc":
-            smem, per_sm = econ_tc_plan(k, p)
-            if per_sm < 2 or smem != tc_smem_bytes(k, p):
-                raise AssertionError(f"k2 {name}: {per_sm} blocks per SM, "
-                                     f"{smem} bytes (the wrapper's plan: "
-                                     f"{tc_smem_bytes(k, p)})")
-            tags.update(smem_bytes=smem, blocks_per_sm=per_sm)
+        if kind != "smem":
+            tags = tc_tags(f"k2 {name}", kind, econ_tc_plan(k, p, kind),
+                           smem_bytes(kind, k, p), K2_BLOCKS[kind])
             beside = {"smem_design": lambda a, b, c: econ_filter_kernel(
                 a, b, c, smem_design=True)}
         err, k2_times[name, g] = filter_check(
             f"k2 {name}", econ_filter, econ_filter_plain, econ_work, scfg,
             g, k, p, 5e-3, 5, beside=beside, tags=tags)
         k2_err = max(k2_err, err)
+        k2_errs[name] = max(k2_errs.get(name, 0.0), err)
 
     # ---- 6b. K5 vs plain: right route (stage 0, K=100 >= p=49) and left
-    # route (stage 1, K=60 < p=98), at G=768 and at one chunk ----
+    # route (stage 1, K=60 < p=98), at G=768 and at one chunk, on the
+    # tensor-core design (the shared-memory design timed beside on the same
+    # inputs), then the chunk without poly_bf16 ----
     k5_err = 0.0
     k5_times = {}
-    for g in (768, 3 * 4096):
-        for name, scfg in (("right(s0)", a0), ("left(s1)", a1)):
-            err, k5_times[name, g] = filter_check(
-                f"k5 {name}", poly_filter, poly_filter_plain, poly_work,
-                scfg, g, scfg.npatches, scfg.pdim, 2e-2,
-                5 if g == 768 else 2)
-            k5_err = max(k5_err, err)
+    k5_cases = [(g, name, scfg) for g in (768, 3 * 4096)
+                for name, scfg in (("right(s0)", a0), ("left(s1)", a1))]
+    k5_cases += [(3 * 4096, "right(s0) f32", a0.replace(poly_bf16=False)),
+                 (3 * 4096, "left(s1) f32", a1.replace(poly_bf16=False))]
+    for g, name, scfg in k5_cases:
+        k, p = scfg.npatches, scfg.pdim
+        kind = k5.design(k, p, scfg.poly_bf16)
+        tags, beside = dict(design=kind), None
+        if kind == "tc":
+            tags = tc_tags(f"k5 {name}", kind, k5.tc_plan(k, p),
+                           k5.tc_smem_bytes(k, p),
+                           k5.BLOCKS_PER_SM[k5.tc_width(p)])
+            tags["width"] = k5.tc_width(p)
+            beside = {"smem_design": lambda a, b, c: k5.poly_filter_kernel(
+                a, b, c, smem_design=True)}
+        err, k5_times[name, g] = filter_check(
+            f"k5 {name}", poly_filter, poly_filter_plain, poly_work, scfg,
+            g, k, p, 2e-2 if scfg.poly_bf16 else 1e-4,
+            5 if g == 768 else 2, beside=beside, tags=tags)
+        k5_err = max(k5_err, err)
 
     # ---- 7. small-clip parity with the JAX package (CPU numbers) ----
     small_clean = synthetic_video(5, 96, 112, seed=0)
@@ -1183,6 +1221,14 @@ def main():
                   flows=fl)
         launches[name], k1_runs[name] = out[0], out[3]
         del out
+    # the redesigned filter kernels ran on the paths that take them: K5's
+    # tensor-core design under poly_impl="pallas", K2's wide design on
+    # preset default's first pass
+    for name, kern in (("e2e_poly_pallas", "poly_filter.tc"),
+                       ("e2e_preset_default", "econ_filter.tcw")):
+        if not launches[name][kern] > 0:
+            raise AssertionError(f"{name}: no launch of {kern}: "
+                                 f"{launches[name]}")
     main_path = launches["e2e_api_zero"]
     k1_api_phase(k1_runs["e2e_api_zero"], k1_shapes, api_cfg)
 
@@ -1262,6 +1308,8 @@ def main():
     kms, pms, (k2_bms, k2_by) = k2_times["gram(s1)", 3 * 4096]
     g_kms, g_pms, (k4_bms, k4_by) = k4_times["s1"]
     p_kms, p_pms, (k5_bms, k5_by) = k5_times["left(s1)", 3 * 4096]
+    w_kms, w_pms, (k2w_bms, k2w_by) = k2_times["matrix(default s0)",
+                                               3 * 4096]
     k3_kms, k3_pms, (k3_bms, k3_by) = k3_times["s0.l0"]
     print(json.dumps({"kernels": [
         {"name": "patch_dist", "route": "cuda",
@@ -1276,6 +1324,13 @@ def main():
          "launches": main_path["econ_filter"], "max_abs_err": k2_err,
          "ms": kms, "plain_ms": pms, "bound_ms": k2_bms, "bound_by": k2_by,
          "library_ms": None},
+        {"name": "econ_filter_tcw", "route": "cuda",
+         "source": "vnlb_tpu_torch/csrc/econ_filter.cu",
+         "replaces": "vnlb_tpu/ops/pallas_filter.py:320",
+         "launches": launches["e2e_preset_default"]["econ_filter.tcw"],
+         "max_abs_err": k2_errs["matrix(default s0)"], "ms": w_kms,
+         "plain_ms": w_pms,
+         "bound_ms": k2w_bms, "bound_by": k2w_by, "library_ms": None},
         {"name": "patch_gather", "route": "cuda",
          "source": "vnlb_tpu_torch/csrc/patch_gather.cu",
          "replaces": "vnlb_tpu/ops/pallas_gather.py:176",

@@ -5,11 +5,14 @@ for parent/change comparisons on one CUDA card.
     python3 scripts/torch_ab.py <dir holding vnlb_tpu_torch> <tag> [runs]
 
 Runs ``denoise`` on the 5x480x854 clip of chip_smoke.py (sigma 20) with the
-bench config and with the API default (zero flow): one warmup, then
-``runs`` (default 3; 0 skips the paths) timed runs each, and prints one
-``[ab]`` line per path with the walls, the best wall, the peak device
-memory, K1's device time in one more run (CUDA events around each launch,
-``chip_smoke.timed_run``) and a SHA-256 of ``deno`` and of ``basic``.  Then times K1 (``patch_dist``)
+bench config, the API default (zero flow), the API default with
+``poly_impl="pallas"`` (K5 in both passes) and preset ``default`` (K2 on
+(100, 98) groups in the first pass): one warmup, then ``runs`` (default
+3; 0 skips the paths) timed runs each, and prints one ``[ab]`` line per
+path with the walls, the best wall, the peak device memory, the PSNR of
+``basic`` and ``deno``, K1's and K2's device time in one more run (CUDA
+events around each launch, ``chip_smoke.timed_run``) and a SHA-256 of
+``deno`` and of ``basic``.  Then times K1 (``patch_dist``)
 at the main path's launch shapes (a 4096-site chunk of the API default's
 interior sites at stage 0 levels 0, 1, 2 and stage 1 level 0, the bench
 config's 46,046 stage-1 sites, and the window-start entry on 4096 sites of
@@ -60,7 +63,12 @@ def main():
                               step_s=6, border_mode="mask", topk="exact")
     from chip_smoke import k1_cases, timed_run
 
-    for name, cfg in (("bench", bench), ("api_zero", None)):
+    from vnlb_tpu_torch.utils.metrics import compute_psnr
+
+    paths = (("bench", bench), ("api_zero", None),
+             ("poly_pallas", vt.default_config(20.0, poly_impl="pallas")),
+             ("preset_default", vt.default_config(20.0, preset="default")))
+    for name, cfg in paths:
         if not runs:
             break
         deno, basic, _ = vt.denoise(noisy, 20.0, cfg=cfg, device=dev)
@@ -70,15 +78,24 @@ def main():
             walls.append(vt.denoise(noisy, 20.0, cfg=cfg, device=dev)[2])
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         _, per = timed_run(vt, noisy, dev, cfg, None)
-        k1 = [v for k, v in per.items() if k[0] == "patch_dist"]
-        k1_ms, k1_n = sum(v[0] for v in k1), sum(v[1] for v in k1)
+        dev_ms = {}
+        for kern in ("patch_dist", "econ_filter"):
+            vals = [v for k, v in per.items() if k[0] == kern]
+            dev_ms[kern] = (sum(v[0] for v in vals), sum(v[1] for v in vals))
         sha = {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()[:16]
                for k, v in (("deno", deno), ("basic", basic))}
+        psnr = {k: compute_psnr(v.cpu().numpy(), clean)
+                for k, v in (("deno", deno), ("basic", basic))}
         print(f"[ab] tag={tag} path={name} seconds="
               f"{','.join(f'{t:.4f}' for t in walls)} best={min(walls):.4f} "
-              f"peak_gib={peak:.3f} k1_device_ms={k1_ms:.2f} "
-              f"k1_launches={k1_n} sha_deno={sha['deno']} "
-              f"sha_basic={sha['basic']}", flush=True)
+              f"peak_gib={peak:.3f} psnr_basic={psnr['basic']:.4f} "
+              f"psnr_deno={psnr['deno']:.4f} "
+              f"k1_device_ms={dev_ms['patch_dist'][0]:.2f} "
+              f"k1_launches={dev_ms['patch_dist'][1]} "
+              f"k2_device_ms={dev_ms['econ_filter'][0]:.2f} "
+              f"k2_launches={dev_ms['econ_filter'][1]} "
+              f"sha_deno={sha['deno']} sha_basic={sha['basic']}", flush=True)
+        del deno, basic
     from vnlb_tpu_torch.ops import color
     from vnlb_tpu_torch.ops.patch_dist import patch_dist
 

@@ -2,18 +2,21 @@
 """Where the time of the port's two-pass ``denoise`` goes on one CUDA card.
 
     python3 scripts/torch_profile.py [dir holding vnlb_tpu_torch] [runs]
+                                     [paths]
 
 The package is imported from the directory given (default: this
 repository), so a parent tree unpacked under build/ profiles the same way.
-On the 5x480x854 clip of chip_smoke.py (sigma 20), for the bench config
-and the API default (zero flow): one warmup, ``runs`` (default 3) plain
-runs (walls), then
+On the 5x480x854 clip of chip_smoke.py (sigma 20), for each path of
+``paths`` (comma-separated; default ``bench,api_zero``: the bench config
+and the API default with zero flow; also ``poly_pallas``, the API default
+with ``poly_impl="pallas"``, and ``preset_default``): one warmup, ``runs``
+(default 3) plain runs (walls), then
 
 * one run under ``torch.profiler`` (CPU and CUDA activity): the device's
   kernel time by kernel name (CUPTI timestamps, so host gaps between
   launches are not counted), the union of the kernel intervals over the
-  profiled wall (busy share), and K1's kernel time and launches
-  (``patch_dist_kernel``);
+  profiled wall (busy share), and the kernel time and launches of K1
+  (``patch_dist_kernel``), K2 (``econ_*``) and K5 (``poly_*``);
 * one run with a device synchronize around each phase of the pass (dense
   search, gather search, K4 gather, flat test, filter, scatter, fold):
   each phase's wall on the host clock, and the rest of the run.
@@ -103,6 +106,7 @@ def main():
     root = os.path.abspath(sys.argv[1]) if len(sys.argv) > 1 else \
         os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     runs = int(sys.argv[2]) if len(sys.argv) > 2 else 3
+    wanted = (sys.argv[3] if len(sys.argv) > 3 else "bench,api_zero").split(",")
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile: no CUDA device")
     sys.path.insert(0, root)
@@ -119,18 +123,25 @@ def main():
                                        20.0, seed=1)).to(dev)
     bench = vt.default_config(20.0, preset="iphone", eig_method="poly",
                               step_s=6, border_mode="mask", topk="exact")
-    for name, cfg in (("bench", bench), ("api_zero", None)):
+    paths = {"bench": bench, "api_zero": None,
+             "poly_pallas": vt.default_config(20.0, poly_impl="pallas"),
+             "preset_default": vt.default_config(20.0, preset="default")}
+    for name in wanted:
+        cfg = paths[name]
         vt.denoise(noisy, 20.0, cfg=cfg, device=dev)
         walls = [vt.denoise(noisy, 20.0, cfg=cfg, device=dev)[2]
                  for _ in range(runs)]
         sec, by_name, busy = profiled(vt, noisy, cfg, dev)
         total = sum(ms for ms, _ in by_name.values())
-        k1 = [v for k, v in by_name.items() if "patch_dist_kernel" in k]
+        mine = {tag: [v for k, v in by_name.items() if key in k]
+                for tag, key in (("k1", "patch_dist_kernel"),
+                                 ("k2", "econ_"), ("k5", "poly_"))}
         print(f"[profile] path={name} walls={','.join(f'{w:.4f}' for w in walls)}"
               f" profiled_wall={sec:.4f} kernel_ms={total:.2f} "
               f"busy_ms={busy:.2f} busy_share={busy / 1e3 / sec:.3f} "
-              f"k1_kernel_ms={sum(v[0] for v in k1):.2f} "
-              f"k1_launches={sum(v[1] for v in k1)}", flush=True)
+              + " ".join(f"{tag}_kernel_ms={sum(v[0] for v in vals):.2f} "
+                         f"{tag}_launches={sum(v[1] for v in vals)}"
+                         for tag, vals in mine.items()), flush=True)
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
         for kname, (ms, n) in top:
             print(f"[profile] path={name} kernel={kname[:60]!r} ms={ms:.2f} "

@@ -15,9 +15,11 @@ import torch
 import vnlb_tpu_torch as vt
 from vnlb_tpu_torch.ops.dense_dist import (dense_dist, dense_dist_plain,
                                            frame_range)
-from vnlb_tpu_torch.ops.econ_filter import (design, econ_filter,
-                                            econ_filter_plain, tc_plan,
-                                            tc_smem_bytes)
+from vnlb_tpu_torch.ops import poly_filter as k5
+from vnlb_tpu_torch.ops.econ_filter import (BLOCKS_PER_SM, design,
+                                            econ_filter, econ_filter_kernel,
+                                            econ_filter_plain, smem_bytes,
+                                            tc_plan, tc_smem_bytes)
 from vnlb_tpu_torch.ops.mask import lattice_sites
 from vnlb_tpu_torch.ops.patch_dist import (card_plan, patch_dist,
                                            patch_dist_plain, patch_dist_tile,
@@ -362,12 +364,50 @@ def test_econ_filter_tc_shapes_match_plain(card, stage, k, p, g, bf16):
                                  (16, 128), (16, 129), (100, 98), (60, 294),
                                  (100, 147)])
 def test_econ_tc_plan_matches_wrapper(card, k, p):
-    """The kernel library's plan of the tensor-core design equals the
-    wrapper's (ops/econ_filter.tc_smem_bytes), and a shape it takes keeps
-    two blocks on an SM."""
-    smem, per_sm = tc_plan(k, p)
-    assert smem == tc_smem_bytes(k, p)
-    assert per_sm >= 2 if smem else per_sm == 0
+    """The kernel library's plan of each tensor-core design ("tc" at width
+    64, "tcw" at 128) equals the wrapper's (ops/econ_filter.smem_bytes),
+    and a shape it takes keeps the blocks on an SM that the design states
+    (ops/econ_filter.BLOCKS_PER_SM: two, one)."""
+    for kind in ("tc", "tcw"):
+        smem, per_sm = tc_plan(k, p, kind)
+        assert smem == smem_bytes(kind, k, p)
+        assert per_sm >= BLOCKS_PER_SM[kind] if smem else per_sm == 0
+    assert tc_plan(k, p) == tc_plan(k, p, "tc")
+    assert (tc_smem_bytes(k, p) > 0) == (design(k, p, True) == "tc")
+
+
+# the wide design's shapes: preset default's pt=2 first pass at a chunk's
+# 12,288 groups and at a count that is not a multiple of the resident
+# blocks (132 SMs x 1), and a q = 65 matrix route
+TCW_SHAPES = [(100, 98, 12288), (100, 98, 777), (70, 65, 535)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("k,p,g", TCW_SHAPES)
+def test_econ_filter_tcw_matches_plain(card, k, p, g, bf16):
+    """The wide tensor-core design under poly_bf16 (the shared-memory design
+    without it) against the plain version at the tolerances of
+    test_econ_filter_tc_shapes_match_plain; a repeat run is bitwise equal,
+    each call is one launch of its design, and the shared-memory design
+    agrees on the same inputs."""
+    cfg = vt.default_config(20.0, preset="default").stage(0).replace(
+        poly_bf16=bf16)
+    assert design(k, p, bf16) == ("tcw" if bf16 else "smem")
+    xc, xn = _groups(np.random.default_rng(k * p + g), g, k, p, card)
+    before = econ_filter.launches
+    kind_before = econ_filter.by_design[design(k, p, bf16)]
+    got = econ_filter(xc, xn, cfg)
+    again = econ_filter(xc, xn, cfg)
+    want = econ_filter_plain(xc, xn, cfg)
+    torch.cuda.synchronize()
+    assert econ_filter.launches == before + 2
+    assert econ_filter.by_design[design(k, p, bf16)] == kind_before + 2
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    assert _rel_rms(got, want) < (5e-2 if bf16 else 1e-4)
+    old = econ_filter_kernel(xc, xn, cfg, smem_design=True)
+    assert _rel_rms(old, want) < (5e-2 if bf16 else 1e-4)
 
 
 @pytest.mark.cuda
@@ -386,6 +426,52 @@ def test_poly_filter_kernel_matches_plain(card, stage, bf16):
     assert poly_filter.launches == before + 1
     assert torch.isfinite(got).all()
     assert _rel_rms(got, want) < (5e-2 if bf16 else 1e-4)
+
+
+# K5's tensor-core shapes: both routes at a chunk's 12,288 groups, ragged
+# widths and group counts (q = 37, 33, 128; 777, 535, 300 groups), the
+# right route at width 128 and the left route at width 64
+K5_TC_SHAPES = [(1, 60, 98, 12288), (0, 100, 49, 12288), (1, 37, 98, 777),
+                (0, 64, 33, 535), (1, 16, 128, 300), (0, 100, 98, 300),
+                (1, 20, 49, 300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("stage,k,p,g", K5_TC_SHAPES)
+def test_poly_filter_tc_shapes_match_plain(card, stage, k, p, g, bf16):
+    """K5's tensor-core design under poly_bf16 (the shared-memory design
+    without it) against the plain version, at chip_smoke.py's K5 tolerance
+    (rms / scale < 2e-2) and 1e-4 in f32; a repeat run is bitwise equal and
+    each call is one launch."""
+    cfg = vt.default_config(20.0).stage(stage).replace(poly_bf16=bf16)
+    assert k5.design(k, p, bf16) == ("tc" if bf16 else "smem")
+    xc, xn = _groups(np.random.default_rng(k * p + g + 1), g, k, p, card)
+    before = poly_filter.launches
+    got = poly_filter(xc, xn, cfg)
+    again = poly_filter(xc, xn, cfg)
+    want = poly_filter_plain(xc, xn, cfg)
+    torch.cuda.synchronize()
+    assert poly_filter.launches == before + 2
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    assert _rel_rms(got, want) < (2e-2 if bf16 else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,p", [(100, 49), (60, 98), (37, 98), (64, 33),
+                                 (16, 128), (100, 98), (20, 49), (100, 147),
+                                 (60, 294), (65, 98)])
+def test_poly_tc_plan_matches_wrapper(card, k, p):
+    """The kernel library's plan of K5's tensor-core design equals the
+    wrapper's (ops/poly_filter.tc_smem_bytes), and a shape it takes keeps
+    the blocks on an SM its width states (two at 64, one at 128)."""
+    smem, per_sm = k5.tc_plan(k, p)
+    assert smem == k5.tc_smem_bytes(k, p)
+    if smem:
+        assert per_sm >= k5.BLOCKS_PER_SM[k5.tc_width(p)]
+    else:
+        assert per_sm == 0
 
 
 @pytest.mark.cuda
@@ -414,10 +500,12 @@ def test_filter_paths_launch_kernels(card, name):
            vt.default_config(20.0, poly_impl="pallas"))
     for c in (patch_dist, econ_filter, patch_gather, poly_filter):
         c.launches = 0
+    econ_filter.by_design.update(tc=0, tcw=0, smem=0)
     deno, _, _ = vt.denoise(noisy, 20.0, cfg=cfg, device=card)
     assert min(patch_dist.launches, patch_gather.launches) > 0
     if name == "preset_default":
         assert econ_filter.launches > 0 and poly_filter.launches == 0
+        assert econ_filter.by_design["tcw"] > 0
     else:
         assert poly_filter.launches > 0 and econ_filter.launches == 0
     again, _, _ = vt.denoise(noisy, 20.0, cfg=cfg, device=card)

@@ -26,34 +26,42 @@
 //
 // What bounds it on the H100: arithmetic.  A stage-1 group (K=60, p=98)
 // reads and writes 3 x 23.5 KB and does ~2.8 M multiply-adds, ~40 FMAs per
-// byte; the chain is seven dependent q x q products.  Two designs:
+// byte; the chain is seven dependent q x q products.  Three designs
+// (ops/econ_filter.py `design`):
 //
-// The tensor-core design (`econ_tc_kernel`, econ_tc.cuh) takes the groups
-// with q <= 64 under poly_bf16 whose buffers leave room for two blocks per
-// SM: the main path's matrix (100, 49) and Gram (60, 98) groups.  A block
-// of 256 threads walks its groups; q is padded to 64 with a zero block, so
-// every chain product is one 64 x 64 x 64 mma.sync (bf16 operands, f32
-// accumulation) per group, split over 8 warps.  The f32 state (A, T_2,
-// T_3, the Clenshaw pair) stays in the accumulator registers of the
-// thread that computed it; each operand goes to shared memory once,
-// rounded to bf16 when stored.  The covariance / Gram and xn xc^T products
-// (f32 operands) run on CUDA cores, 8x8 outputs per thread over a quarter
-// of the depth, and land in the same register layout; they are ~25% of a
-// Gram group's multiply-adds and set its operation bound.  One barrier per
-// chain step.
+// The tensor-core design (`econ_tc_kernel`, econ_tc.cuh at width 64) takes
+// the groups with q <= 64 under poly_bf16 whose buffers leave room for two
+// blocks per SM: the main path's matrix (100, 49) and Gram (60, 98)
+// groups.  A block of 256 threads walks its groups; q is padded to 64 with
+// a zero block, so every chain product is one 64 x 64 x 64 mma.sync (bf16
+// operands, f32 accumulation) per group, split over 8 warps.  The f32
+// state (A, T_2, T_3, the Clenshaw pair) stays in the accumulator
+// registers of the thread that computed it; each operand goes to shared
+// memory once, rounded to bf16 when stored.  The covariance / Gram and xn
+// xc^T products (f32 operands) run on CUDA cores, 8x8 outputs per thread
+// over a quarter of the depth, and land in the same register layout; they
+// are ~25% of a Gram group's multiply-adds and set its operation bound.
+// One barrier per chain step.
+//
+// The wide tensor-core design (`econ_tcw_kernel`, width 128, its note
+// below) takes the matrix route's groups with 64 < q <= 128 under
+// poly_bf16 whose buffers fit one block per SM: the pt=2 first pass of
+// presets `default` and `sss`, (100, 98).
 //
 // The shared-memory design (`econ_filter_kernel`, group_mm.cuh) takes
-// every other shape (q > 64, poly_bf16 off, groups beyond shared memory):
-// the group's two patch blocks and seven q x q f32 matrices in shared
-// memory when they fit (~148 KB at stage 1, ~106 KB at stage 0 of the
-// iphone preset), the products on CUDA cores with a 2x2 tile of outputs
-// per thread, operands rounded to bf16 in registers.
+// every other shape (poly_bf16 off, Gram groups with q > 64, groups beyond
+// the tensor-core designs' shared memory): the group's two patch blocks
+// and seven q x q f32 matrices in shared memory when they fit (~148 KB at
+// stage 1, ~106 KB at stage 0 of the iphone preset), the products on CUDA
+// cores with a 2x2 tile of outputs per thread, operands rounded to bf16 in
+// registers.
 //
-// Groups beyond shared memory: the presets with pt=2 in the first pass
-// (K=100, p=98: 347 KB) and `couple_channels` (p = 3 x 49 or 3 x 98; up to
-// 515 KB) do not fit the 227 KB a block may use.  Of the two layouts that
-// keep the arithmetic as it is, the shared-memory design takes the one
-// that changes no cast point: the buffers are placed by priority (group_mm.cuh
+// Groups beyond shared memory: the shared-memory design's groups of the
+// pt=2 first pass without poly_bf16 (K=100, p=98: 347 KB) and of
+// `couple_channels` (p = 3 x 49 or 3 x 98; up to 515 KB) do not fit the
+// 227 KB a block may use.  Of the two layouts that keep the arithmetic as
+// it is, the shared-memory design takes the one that changes no cast
+// point: the buffers are placed by priority (group_mm.cuh
 // `plan_slots`), the most-read q x q matrices first, the patch blocks
 // last; a matrix that does not fit lives in the block's slice of a
 // workspace in device memory, and a patch block that does not fit is read
@@ -312,25 +320,6 @@ int tc_smem(int K, int p) {
 // node tables (xs, proj, v0) a block copies to shared memory when they fit
 constexpr int kTab = 1536;
 
-// out[r][c] for the tile row of an application (see tc::mma_rows), rows
-// < K and columns < p: val(r, c, acc)
-template <class F>
-__device__ __forceinline__ void apply_rows(float* o, int K, int p, int m0,
-                                           int n0, int cnt,
-                                           const float c[8][4], F val) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    if (j >= cnt) break;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = m0 + (lane >> 2) + 8 * (e >> 1);
-      const int col = n0 + 8 * j + 2 * (lane & 3) + (e & 1);
-      if (r < K && col < p) o[r * p + col] = val(r, col, c[j][e]);
-    }
-  }
-}
-
 __global__ void __launch_bounds__(tc::kThreads, 2)
 econ_tc_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
                float* __restrict__ out, int G, int K, int p, int m, int s,
@@ -578,8 +567,8 @@ econ_tc_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
         if (cnt <= 0) continue;
         float c[8][4];
         tc::mma_rows(c, XnB, 16 * mi, buf0, 8 * n_lo, cnt, kt_q);
-        apply_rows(o, K, p, 16 * mi, 8 * n_lo, cnt, c,
-                   [&](int, int, float v) { return v; });
+        tc::apply_rows(o, K, p, 16 * mi, 8 * n_lo, cnt, c,
+                       [&](int, int, float v) { return v; });
       }
     } else {
       // mh = xn xc^T (f32), t = mh F, out = f0 xn + t xc * 2/(K lub)
@@ -602,10 +591,10 @@ econ_tc_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
         if (cnt <= 0) continue;
         float c[8][4];
         tc::mma_rows(c, buf0, 16 * mi, buf2, 8 * n_lo, cnt, kt_q);
-        apply_rows(o, K, p, 16 * mi, 8 * n_lo, cnt, c,
-                   [&](int r, int col, float v) {
-                     return f0 * Xb[col * tc::kLdk + r] + v * yscale;
-                   });
+        tc::apply_rows(o, K, p, 16 * mi, 8 * n_lo, cnt, c,
+                       [&](int r, int col, float v) {
+                         return f0 * Xb[col * tc::kLdk + r] + v * yscale;
+                       });
       }
     }
     __syncthreads();  // the next group overwrites the patch blocks
@@ -614,21 +603,263 @@ econ_tc_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
 
 // Blocks of a tensor-core launch: one per resident slot (at most G).
 int tc_grid(int G, int smem, int* grid, int* per_sm) {
-  cudaError_t err = cudaFuncSetAttribute(
-      econ_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, occ = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, econ_tc_kernel,
-                                                      tc::kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (occ < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long slots = (long long)sms * occ;
-  *grid = (int)(slots < G ? slots : G);
-  if (per_sm != nullptr) *per_sm = occ;
-  return 0;
+  return tc::occupancy_grid((const void*)econ_tc_kernel, tc::kThreads, smem,
+                            G, grid, per_sm);
+}
+
+// ---- the wide tensor-core design (econ_tc.cuh at width 128) ----
+//
+// The matrix route's groups with 64 < q = p <= 128 under poly_bf16 whose
+// buffers fit one block per SM (preset `default`'s and `sss`'s pt=2 first
+// pass, (100, 98); A, T_2 and T_3 in f32 leave room up to q = 104).  A block of 512 threads walks its groups; every chain
+// product and the application is a padded 128 x 128 bf16 mma.sync (32
+// f32 accumulators per thread).  Registers hold two f32 states, the
+// Clenshaw pair; A, T_2 and T_3, which every Clenshaw step reads in f32
+// for V_i, sit in shared memory as f32 q x q matrices at a row stride of
+// 8 mod 32 floats (`tcw_ldt`: the float2 reads of a half-warp meet no bank
+// twice); the operands are two bf16 buffers, B = T_s(A) and the Clenshaw
+// state (the chain's first products use them too).  Each Clenshaw product
+// adds hi B to (V_i - lo) / 2 in the accumulators and doubles it, so no
+// third state is held.  Phases share the shared memory: xc (f32) and the
+// covariance's scratch, then the chain, then bf16(xn) (read from device
+// memory at the end) over the Clenshaw buffer.
+constexpr int kTcwMax = 220 * 1024;
+constexpr int kTcwLdb = 128 + 8, kTcwLdk = 128 + 4;
+
+__host__ __device__ inline int tcw_ldt(int q) {
+  return tc::round_up(q > 8 ? q - 8 : 0, 32) + 8;
+}
+
+// Dynamic shared memory of the wide design for (K, p) groups, or 0 when it
+// does not take them.  ops/econ_filter.py `tcw_smem_bytes` mirrors this.
+int tcw_smem(int K, int p) {
+  if (K < p || p <= tc::kQ || p > 128) return 0;
+  const long long tsz = (long long)p * tcw_ldt(p) * 4, buf = 128LL * kTcwLdb * 2;
+  long long n = (long long)K * kTcwLdk * 4 + 2LL * 128 * kTcwLdb * 4;
+  if (3 * tsz + 2 * buf > n) n = 3 * tsz + 2 * buf;
+  const long long app = 3 * tsz + buf + (long long)tc::round_up(K, 16) *
+                                            kTcwLdb * 2;
+  if (app > n) n = app;
+  return n <= kTcwMax ? (int)n : 0;
+}
+
+__global__ void __launch_bounds__(tc::Width<128>::kThreads, 1)
+econ_tcw_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
+                float* __restrict__ out, int G, int K, int p, int m, int s,
+                int nodes, const float* __restrict__ xs,
+                const float* __restrict__ proj, float tau, float lub_floor,
+                float sb2, float s2, float cwg) {
+  constexpr int W = 128, NT = tc::Width<W>::kThreads, NW = NT / 32;
+  constexpr int LDB = kTcwLdb, LDK = kTcwLdk;
+  using FS = tc::Frag<W, W, NT>;
+  constexpr int N = FS::N;
+  extern __shared__ __align__(16) unsigned char smraw[];
+  __shared__ float fv[kMaxNodes];
+  __shared__ float gam[kMaxCoef];
+  __shared__ float scal[1];  // lub
+  __shared__ float rowpart[W / 32 * W];
+  __shared__ float diagv[W];
+
+  const int q = p, ms = m * s, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int kt = (q + 15) / 16, ldt = tcw_ldt(q), tsz = q * ldt;
+  float* Xc = reinterpret_cast<float*>(smraw);
+  float* part = Xc + K * LDK;
+  float* TA = reinterpret_cast<float*>(smraw);  // A, T_2, T_3 (f32)
+  float* T2 = TA + tsz;
+  float* T3 = T2 + tsz;
+  bf16* bB = reinterpret_cast<bf16*>(T3 + tsz);  // B side: B = T_s(A)
+  bf16* bH = bB + W * LDB;                       // A side: the state
+  const FS ps;
+  const float invk = 1.f / (float)K;
+
+  // elements i, i + 1 (one row, two columns) of a q x q f32 matrix
+  auto tget = [&](const float* T, int i) -> float2 {
+    const int r = ps.row(i), c = ps.col(i);
+    if (r >= q || c >= q) return make_float2(0.f, 0.f);
+    if (c + 1 < q) return *reinterpret_cast<const float2*>(T + r * ldt + c);
+    return make_float2(T[r * ldt + c], 0.f);
+  };
+  auto tput = [&](float* T, int i, float a, float b) {
+    const int r = ps.row(i), c = ps.col(i);
+    if (r >= q || c >= q) return;
+    if (c + 1 < q)
+      *reinterpret_cast<float2*>(T + r * ldt + c) = make_float2(a, b);
+    else
+      T[r * ldt + c] = a;
+  };
+  // V_i = sum_r gam[i, r] T_r(A) at elements k, k + 1
+  auto v_at = [&](int i, int k) -> float2 {
+    const float* g = gam + i * s;
+    const float2 a = tget(TA, k);
+    float vx = g[0] * tc::diag(ps, k, q), vy = g[0] * tc::diag(ps, k + 1, q);
+    vx = vx + g[1] * a.x;
+    vy = vy + g[1] * a.y;
+    if (s >= 3) {
+      const float2 t = tget(T2, k);
+      vx = vx + g[2] * t.x;
+      vy = vy + g[2] * t.y;
+    }
+    if (s == 4) {
+      const float2 t = tget(T3, k);
+      vx = vx + g[3] * t.x;
+      vy = vy + g[3] * t.y;
+    }
+    return make_float2(vx, vy);
+  };
+
+  for (int grp = blockIdx.x; grp < G; grp += gridDim.x) {
+    const size_t base = (size_t)grp * K * p;
+    tc::load_padded<W, NT>(xc + base, K, K, p, [&](int r, int c, float v) {
+      Xc[r * LDK + c] = v;
+    });
+    __syncthreads();
+
+    // covariance, f32 operands, and lub
+    float A[N], H[N];
+    tc::syrk<W, W, NT>(A, Xc, LDK, Xc, LDK, K, part, ps);
+#pragma unroll
+    for (int k = 0; k < N; ++k) A[k] *= invk;
+    tc::frag_lub<W, NT>(A, ps, rowpart, diagv, lub_floor, &scal[0]);
+    const float lub = scal[0];
+
+    // transfer values at the scaled Chebyshev nodes, then gam
+    for (int n = tid; n < nodes; n += NT) {
+      const float lam = (xs[n] + 1.f) * 0.5f * lub;
+      const float wg = cwg * sqrtf(tau * lub);
+      const float z = (lam - tau) / (wg / 4.4f);
+      const float gate = 1.f / (1.f + expf(-z));
+      const float lam_s = fmaxf(lam - sb2, 0.f);
+      fv[n] = gate * lam_s / (lam_s + s2);
+    }
+    __syncthreads();
+    for (int j = warp; j < ms; j += NW) {
+      float acc = 0.f;
+      for (int n = lane; n < nodes; n += 32)
+        acc = fmaf(fv[n], proj[n * ms + j], acc);
+      acc = vnlb::warp_sum(acc);
+      if (lane == 0) gam[j] = acc;
+    }
+
+    // A = M * (2 / lub) - I: f32 for V, bf16 on both sides
+    const float sc = 2.f / lub;
+#pragma unroll
+    for (int k = 0; k < N; ++k) A[k] = A[k] * sc - tc::diag(ps, k, q);
+#pragma unroll
+    for (int k = 0; k < N; k += 2) tput(TA, k, A[k], A[k + 1]);
+    tc::store_row(bH, LDB, ps, [&](int k) { return A[k]; });
+    tc::store_colT(bB, LDB, ps, [&](int k) { return A[k]; });
+    __syncthreads();
+
+    // A^2 into H; then B = T_s(A) into bB, T_2 and T_3 into shared memory
+    tc::mma_frag<W, W, NT>(H, bH, bB, LDB, kt);
+    __syncthreads();
+    if (s == 2) {
+      tc::store_colT(bB, LDB, ps,
+                     [&](int k) { return 2.f * H[k] - tc::diag(ps, k, q); });
+    } else {
+#pragma unroll
+      for (int k = 0; k < N; k += 2)
+        tput(T2, k, 2.f * H[k] - tc::diag(ps, k, q),
+             2.f * H[k + 1] - tc::diag(ps, k + 1, q));
+      // st(4 A^2 - 3 I) st(A): T_3 (s = 4) or B (s = 3), into A
+      tc::store_row(bH, LDB, ps, [&](int k) {
+        return 4.f * H[k] - 3.f * tc::diag(ps, k, q);
+      });
+      __syncthreads();
+      tc::mma_frag<W, W, NT>(A, bH, bB, LDB, kt);
+      __syncthreads();
+      if (s == 3) {
+        tc::store_colT(bB, LDB, ps, [&](int k) { return A[k]; });
+      } else {
+#pragma unroll
+        for (int k = 0; k < N; k += 2) tput(T3, k, A[k], A[k + 1]);
+        // A^4 = st(A^2) st(A^2), B = 8 A^4 - 8 A^2 + I
+        tc::store_row(bH, LDB, ps, [&](int k) { return H[k]; });
+        tc::store_colT(bB, LDB, ps, [&](int k) { return H[k]; });
+        __syncthreads();
+        tc::mma_frag<W, W, NT>(A, bH, bB, LDB, kt);
+        __syncthreads();
+        tc::store_colT(bB, LDB, ps, [&](int k) {
+          return 8.f * A[k] - 8.f * H[k] + tc::diag(ps, k, q);
+        });
+      }
+    }
+
+    // Clenshaw in B over i = m-1 .. 1 (the first step has hi = 0)
+    float hi[N], lo[N];
+#pragma unroll
+    for (int k = 0; k < N; ++k) hi[k] = lo[k] = 0.f;
+    for (int i = m - 1; i >= 1; --i) {
+      if (i < m - 1) {
+        __syncthreads();  // the last product has read bH
+        tc::store_row(bH, LDB, ps, [&](int k) { return hi[k]; });
+        __syncthreads();
+#pragma unroll
+        for (int k = 0; k < N; k += 2) {
+          const float2 v = v_at(i, k);
+          lo[k] = 0.5f * (v.x - lo[k]);
+          lo[k + 1] = 0.5f * (v.y - lo[k + 1]);
+        }
+        tc::mma_acc<W, W, NT>(lo, bH, bB, LDB, kt);  // V_i + 2 hi B - lo
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          const float nw = 2.f * lo[k];
+          lo[k] = hi[k];
+          hi[k] = nw;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < N; k += 2) {
+          const float2 v = v_at(i, k);
+          hi[k] = v.x;
+          hi[k + 1] = v.y;
+        }
+      }
+    }
+    // F = V_0 + hi B - lo, into lo
+    if (m > 1) {
+      __syncthreads();
+      tc::store_row(bH, LDB, ps, [&](int k) { return hi[k]; });
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < N; k += 2) {
+        const float2 v = v_at(0, k);
+        lo[k] = v.x - lo[k];
+        lo[k + 1] = v.y - lo[k + 1];
+      }
+      tc::mma_acc<W, W, NT>(lo, bH, bB, LDB, kt);
+    } else {
+#pragma unroll
+      for (int k = 0; k < N; k += 2) {
+        const float2 v = v_at(0, k);
+        lo[k] = v.x;
+        lo[k + 1] = v.y;
+      }
+    }
+    __syncthreads();  // every operand and T_r has been read
+
+    // out = st(xn) st(F): bf16(xn) over the state buffer, rows padded to 16
+    const int kpad = tc::round_up(K, 16);
+    tc::store_colT(bB, LDB, ps, [&](int k) { return lo[k]; });
+    tc::load_padded<W, NT>(xn + base, kpad, K, p, [&](int r, int c, float v) {
+      bH[r * LDB + c] = __float2bfloat16_rn(v);
+    });
+    __syncthreads();
+    float* o = out + base;
+    const int mt = kpad / 16, nt = (p + 7) / 8;
+    const tc::Units un(mt, nt, NW);
+    for (int u = warp; u < mt * un.ns; u += NW) {
+      const int mi = u / un.ns, n_lo = (u - mi * un.ns) * un.nh;
+      const int cnt = min(un.nh, nt - n_lo);
+      if (cnt <= 0) continue;
+      float c[8][4] = {};
+      tc::mma_rows_acc(c, bH, 16 * mi, bB, 8 * n_lo, LDB, cnt, kt);
+      tc::apply_rows(o, K, p, 16 * mi, 8 * n_lo, cnt, c,
+                     [&](int, int, float v) { return v; });
+    }
+    __syncthreads();  // the next group overwrites shared memory
+  }
 }
 
 }  // namespace
@@ -702,5 +933,44 @@ extern "C" int vnlb_econ_filter_tc(const float* xc, const float* xn,
   econ_tc_kernel<<<grid, tc::kThreads, smem, (cudaStream_t)stream>>>(
       xc, xn, out, G, K, p, m, s, nodes, xs, proj, v0, tau, lub_floor, sb2,
       s2, cwg, smem);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of the wide tensor-core design for (K, p) groups
+// and the blocks it keeps on one SM (both 0 when it does not take them);
+// returns a cudaError_t.
+extern "C" int vnlb_econ_filter_tcw_plan(int K, int p, int* smem,
+                                         int* per_sm) {
+  *smem = tcw_smem(K, p);
+  *per_sm = 0;
+  if (*smem == 0) return 0;
+  int grid = 0;
+  return tc::occupancy_grid((const void*)econ_tcw_kernel,
+                            tc::Width<128>::kThreads, *smem, 1, &grid,
+                            per_sm);
+}
+
+// The wide tensor-core design on (G, K, p) matrix-route groups under
+// poly_bf16 (arguments as vnlb_econ_filter's, no v0);
+// cudaErrorInvalidValue for a shape it does not take.
+extern "C" int vnlb_econ_filter_tcw(const float* xc, const float* xn,
+                                    float* out, int G, int K, int p, int m,
+                                    int s, int nodes, const float* xs,
+                                    const float* proj, float tau,
+                                    float lub_floor, float sb2, float s2,
+                                    float cwg, void* stream) {
+  if (G <= 0) return 0;
+  const int smem = tcw_smem(K, p);
+  if (smem == 0 || nodes > kMaxNodes || m * s > kMaxCoef || s < 2 || s > 4)
+    return (int)cudaErrorInvalidValue;
+  int grid = 0;
+  const int err = tc::occupancy_grid((const void*)econ_tcw_kernel,
+                                     tc::Width<128>::kThreads, smem, G,
+                                     &grid, nullptr);
+  if (err != 0) return err;
+  econ_tcw_kernel<<<grid, tc::Width<128>::kThreads, smem,
+                    (cudaStream_t)stream>>>(xc, xn, out, G, K, p, m, s,
+                                            nodes, xs, proj, tau, lub_floor,
+                                            sb2, s2, cwg);
   return (int)cudaGetLastError();
 }

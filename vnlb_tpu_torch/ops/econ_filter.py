@@ -5,10 +5,15 @@
 launches the kernel, and a build or launch failure raises.  Nothing falls
 back.  ``econ_filter.launches`` counts kernel launches.
 
-The kernel has two designs (``design``): "tc", tensor cores for the chain
-with the f32 state in registers, for groups with q = min(K, p) <= 64 under
+The kernel has three designs (``design``), each a CUDA kernel of its own:
+"tc", tensor cores for the chain at a padded width of 64 with the f32
+state in registers, for groups with q = min(K, p) <= 64 under
 ``poly_bf16`` whose buffers leave two blocks per SM (``tc_smem_bytes``);
-"smem", the shared-memory design, for every other shape.
+"tcw", the same at a padded width of 128, one block per SM, for the
+matrix route's groups with 64 < q <= 128 under ``poly_bf16`` whose
+buffers fit (``tcw_smem_bytes``: preset ``default``'s (100, 98)); "smem",
+the shared-memory design on CUDA cores, for every other shape.
+``econ_filter.by_design`` counts the launches of each.
 """
 
 from __future__ import annotations
@@ -33,10 +38,20 @@ MAX_COEF = 64
 # operand buffers of TC_Q rows at a stride of TC_LDB; at most TC_SMEM_MAX
 # bytes of dynamic shared memory per block
 TC_Q, TC_LDK, TC_LDB, TC_BUFS, TC_SMEM_MAX = 64, 68, 72, 4, 104 * 1024
+# the wide design's (csrc/econ_filter.cu ``tcw_smem``): q padded to TCW_Q,
+# f32 rows of TCW_LDK floats, bf16 rows of TCW_LDB; A, T_2, T_3 as f32
+# q x q matrices at a row stride of ``_tcw_ldt(q)``
+TCW_Q, TCW_LDK, TCW_LDB, TCW_SMEM_MAX = 128, 132, 136, 220 * 1024
+# blocks each design keeps on one SM (the card's plan must say the same)
+BLOCKS_PER_SM = {"tc": 2, "tcw": 1}
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def _tcw_ldt(q: int) -> int:
+    return _round_up(max(q - 8, 0), 32) + 8
 
 
 def tc_smem_bytes(k: int, p: int) -> int:
@@ -56,19 +71,46 @@ def tc_smem_bytes(k: int, p: int) -> int:
     return n if n <= TC_SMEM_MAX else 0
 
 
+def tcw_smem_bytes(k: int, p: int) -> int:
+    """Dynamic shared memory of a wide tensor-core block for (k, p) groups,
+    or 0 when that design does not take them (csrc/econ_filter.cu
+    ``tcw_smem``): the matrix route (k >= p) with 64 < p <= 128; the
+    largest of its phases: xc and the covariance's scratch, the chain (A,
+    T_2, T_3 and two operand buffers), the application (bf16(xn) after one
+    buffer)."""
+    if k < p or not TC_Q < p <= TCW_Q:
+        return 0
+    tsz, buf = p * _tcw_ldt(p) * 4, TCW_Q * TCW_LDB * 2
+    n = max(k * TCW_LDK * 4 + 2 * TCW_Q * TCW_LDB * 4, 3 * tsz + 2 * buf,
+            3 * tsz + buf + _round_up(k, 16) * TCW_LDB * 2)
+    return n if n <= TCW_SMEM_MAX else 0
+
+
 def design(k: int, p: int, rnd: bool) -> str:
-    """Which design of the kernel takes (k, p) groups: "tc" or "smem"."""
-    return "tc" if rnd and tc_smem_bytes(k, p) else "smem"
+    """Which design of the kernel takes (k, p) groups: "tc", "tcw" or
+    "smem"."""
+    if rnd and tc_smem_bytes(k, p):
+        return "tc"
+    if rnd and tcw_smem_bytes(k, p):
+        return "tcw"
+    return "smem"
 
 
-def tc_plan(k: int, p: int) -> tuple[int, int]:
-    """(dynamic shared memory, blocks per SM) of the tensor-core design on
-    the card, from the kernel library; (0, 0) for a shape it does not
-    take."""
+def smem_bytes(kind: str, k: int, p: int) -> int:
+    """The Python mirror of a tensor-core design's shared memory."""
+    return {"tc": tc_smem_bytes, "tcw": tcw_smem_bytes}[kind](k, p)
+
+
+def tc_plan(k: int, p: int, kind: str = "tc") -> tuple[int, int]:
+    """(dynamic shared memory, blocks per SM) of a tensor-core design
+    ("tc" or "tcw") on the card, from the kernel library; (0, 0) for a
+    shape it does not take."""
+    fn = {"tc": "vnlb_econ_filter_tc_plan",
+          "tcw": "vnlb_econ_filter_tcw_plan"}[kind]
     smem, per_sm = ctypes.c_int(0), ctypes.c_int(0)
-    _build.check(_build.library().vnlb_econ_filter_tc_plan(
+    _build.check(getattr(_build.library(), fn)(
         k, p, ctypes.byref(smem), ctypes.byref(per_sm)),
-        "econ_filter tc plan")
+        f"econ_filter {kind} plan")
     return smem.value, per_sm.value
 
 
@@ -113,9 +155,15 @@ def econ_filter_kernel(xc2: torch.Tensor, xn2: torch.Tensor, cfg,
             None if v0 is None else v0.data_ptr(), float(ep["tau"]),
             float(1.5 * ep["tau"]), float(ep["sb2"]), float(ep["s2"]),
             float(ep["cwg"]))
-    if not smem_design and design(k, p, ep["rnd"]) == "tc":
+    kind = "smem" if smem_design else design(k, p, ep["rnd"])
+    if kind == "tc":
         err = lib.vnlb_econ_filter_tc(xc2.data_ptr(), xn2.data_ptr(),
                                       out.data_ptr(), g, k, p, *args, stream)
+    elif kind == "tcw":
+        # the matrix route: no v0 (args[5])
+        err = lib.vnlb_econ_filter_tcw(xc2.data_ptr(), xn2.data_ptr(),
+                                       out.data_ptr(), g, k, p,
+                                       *args[:5], *args[6:], stream)
     else:
         # groups beyond shared memory keep their spilled matrices in a
         # per-block workspace (csrc/group_mm.cuh)
@@ -126,8 +174,9 @@ def econ_filter_kernel(xc2: torch.Tensor, xn2: torch.Tensor, cfg,
         err = lib.vnlb_econ_filter(
             xc2.data_ptr(), xn2.data_ptr(), out.data_ptr(), g, k, p, *args,
             int(ep["rnd"]), None if ws is None else ws.data_ptr(), stream)
-    _build.check(err, "econ_filter kernel")
+    _build.check(err, f"econ_filter kernel ({kind})")
     econ_filter.launches += 1
+    econ_filter.by_design[kind] += 1
     return out
 
 
@@ -142,3 +191,4 @@ def econ_filter(xc2: torch.Tensor, xn2: torch.Tensor, cfg) -> torch.Tensor:
 
 
 econ_filter.launches = 0
+econ_filter.by_design = {"tc": 0, "tcw": 0, "smem": 0}

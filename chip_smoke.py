@@ -314,7 +314,10 @@ def k3_work(vid, n_f, scfg):
     """bound() of K3 on one plane: per output value 2*pt*C f32 operations
     for the channel products, 2*(ps-1) for the separable box and 3 for
     q2 + b2 - 2 cross; the level video read once, the plane written
-    once."""
+    once.  This is the function's work: the kernel forms each pixel
+    product once per offset but repeats a tile's ps - 1 halo rows and a
+    strip's ps - 1 halo columns (14.4 FMAs an output at stage 1, 2.4 at
+    stage 0), and sums the box directly (2*(ps-1) adds)."""
     _, c, h, w = vid.shape
     n_out = n_f * (h - scfg.ps + 1) * (w - scfg.ps + 1) * scfg.w_s ** 2
     ops = 2 * scfg.pt * c + 2 * (scfg.ps - 1) + 3
@@ -336,8 +339,8 @@ def k3_launches(yuv, cfg):
 def e2e(vt, name, noisy, clean, dev, counters, expect, cfg=None,
         flows=None):
     """The main path at full size: one counted warmup run, best of 3 with a
-    bitwise repeat check, one run with CUDA events around each K1 and K2
-    launch, the output checks and the plain-version pass.  ``expect`` names
+    bitwise repeat check, one run with CUDA events around each K1, K2 and
+    K3 launch, the output checks and the plain-version pass.  ``expect`` names
     the counters that must launch (the others must not).  Returns
     (launches, deno, basic, {(pt, C, level height, window starts): (K1
     device ms, launches)} of the timed run)."""
@@ -380,7 +383,8 @@ def e2e(vt, name, noisy, clean, dev, counters, expect, cfg=None,
     timed, k1_shapes = {}, {}
     if expect & {"econ_filter", "patch_dist"}:
         run_s, per = timed_run(vt, noisy_t, dev, cfg, flows)
-        for kern, tag in (("econ_filter", "k2"), ("patch_dist", "k1")):
+        for kern, tag in (("econ_filter", "k2"), ("patch_dist", "k1"),
+                          ("dense_dist", "k3")):
             if kern not in expect:
                 continue
             ms = sum(v[0] for k, v in per.items() if k[0] == kern)
@@ -414,9 +418,10 @@ def e2e(vt, name, noisy, clean, dev, counters, expect, cfg=None,
 
 
 def timed_run(vt, noisy_t, dev, cfg, flows):
-    """One more run of a path with CUDA events around each K2 and each K1
+    """One more run of a path with CUDA events around each K2, K1 and K3
     launch: (wall seconds, {(kernel, *shape key): (device ms, launches)});
     K1's key is (pt, C, level height, window starts given)."""
+    from vnlb_tpu_torch.ops.dense_dist import dense_dist
     from vnlb_tpu_torch.ops.econ_filter import econ_filter
     from vnlb_tpu_torch.ops.patch_dist import patch_dist
 
@@ -437,7 +442,8 @@ def timed_run(vt, noisy_t, dev, cfg, flows):
         patch_dist=timing(patch_dist, lambda vid, qt, qy, qx, dt_lo, n_dt,
                           pt, ps, w_s, sy=None, sx=None: (
                               "patch_dist", pt, vid.shape[1], vid.shape[2],
-                              sy is not None)))
+                              sy is not None)),
+        dense_dist=timing(dense_dist, lambda *a, **kw: ("dense_dist",)))
     _, _, sec = vt.denoise(noisy_t, SIGMA, flows=flows, cfg=cfg, device=dev,
                            kernels=kernels)
     per = {}
@@ -810,6 +816,8 @@ def main():
     from vnlb_tpu_torch.ops import color
     from vnlb_tpu_torch.ops.dense_dist import (_box_ps, dense_dist,
                                                dense_dist_plain)
+    from vnlb_tpu_torch.ops.dense_dist import card_plan as k3_card_plan
+    from vnlb_tpu_torch.ops.dense_dist import plan as plan_k3
     from vnlb_tpu_torch.ops import poly_filter as k5
     from vnlb_tpu_torch.ops.econ_filter import BLOCKS_PER_SM as K2_BLOCKS
     from vnlb_tpu_torch.ops.econ_filter import design as econ_design
@@ -942,7 +950,8 @@ def main():
 
     # ---- 3b. K3 vs plain at the all-rows search's 480p shapes, dt=0
     # (every frame valid): stage 0 levels 0/1/2 (F=5, pt*C=1), stage 1
-    # level 0 (F=4, pt*C=6); |d| <= 1e-5 (q2 + b2) + 1e-3 elementwise ----
+    # level 0 (F=4, pt*C=6); |d| <= 1e-5 (q2 + b2) + 1e-3 elementwise; the
+    # launch plan against its mirror, a repeat launch bitwise ----
     k3_err, k3_times = 0.0, {}
     for name, scfg, lvl in (("s0.l0", a0, 0), ("s0.l1", a0, 1),
                             ("s0.l2", a0, 2), ("s1.l0", a1, 0)):
@@ -952,6 +961,15 @@ def main():
         got = dense_dist(*args)
         want = dense_dist_plain(*args)
         torch.cuda.synchronize()
+        plan_args = (ps, w_s, scfg.pt * v_l.shape[1], v_l.shape[2],
+                     v_l.shape[3], got.shape[0])
+        k3p, k3_per_sm = k3_card_plan(*plan_args)
+        if k3p != plan_k3(*plan_args) or k3_per_sm < k3p["blocks_per_sm"]:
+            raise AssertionError(f"K3 {name}: the library's plan {k3p} "
+                                 f"({k3_per_sm} blocks per SM) is not the "
+                                 f"mirror's {plan_k3(*plan_args)}")
+        if not torch.equal(dense_dist(*args), got):
+            raise AssertionError(f"K3 {name}: a repeat launch differs")
         v2 = (v_l * v_l).sum(1)
         v2p = sum(v2[p:p + T - scfg.pt + 1] for p in range(scfg.pt))
         q2 = _box_ps(v2p, ps)
@@ -991,7 +1009,12 @@ def main():
         log("k3", shape=name, out=tuple(got.shape),
             out_gb=f"{got.numel() * 4 / 1e9:.3f}", err_over_q2b2=f"{worst:.3g}",
             kernel_ms=f"{kms:.3f}", plain_ms=f"{pms:.3f}",
-            bound_ms=f"{bms:.4f}", bound_by=by, **extra)
+            bound_ms=f"{bms:.4f}", bound_by=by,
+            over_bound=f"{kms / bms:.2f}", repeat="bitwise",
+            tile=f"{k3p['tile_h']}x{k3p['tile_w']}",
+            smem_bytes=k3p["smem_bytes"], blocks_per_sm=k3_per_sm,
+            plan_blocks_per_sm=k3p["blocks_per_sm"],
+            grid=f"{k3p['grid_x']}x{k3p['grid_y']}x{k3p['grid_z']}", **extra)
         del got, want, scale, err
 
     # ---- 4. K1's window-start entry vs plain: the gather search of the

@@ -6,13 +6,17 @@ for parent/change comparisons on one CUDA card.
 
 Runs ``denoise`` on the 5x480x854 clip of chip_smoke.py (sigma 20) with the
 bench config, the API default (zero flow), the API default with
-``poly_impl="pallas"`` (K5 in both passes) and preset ``default`` (K2 on
-(100, 98) groups in the first pass): one warmup, then ``runs`` (default
-3; 0 skips the paths) timed runs each, and prints one ``[ab]`` line per
-path with the walls, the best wall, the peak device memory, the PSNR of
-``basic`` and ``deno``, K1's and K2's device time in one more run (CUDA
-events around each launch, ``chip_smoke.timed_run``) and a SHA-256 of
-``deno`` and of ``basic``.  Then times K1 (``patch_dist``)
+``poly_impl="pallas"`` (K5 in both passes), preset ``default`` (K2 on
+(100, 98) groups in the first pass) and the API default with
+``dense_rows="full"`` (K3 planes for the interior sites): one warmup,
+then ``runs`` (default 3; 0 skips the paths) timed runs each, and prints
+one ``[ab]`` line per path with the walls, the best wall, the peak device
+memory, the PSNR of ``basic`` and ``deno``, K1's, K2's and K3's device
+time in one more run (CUDA events around each launch,
+``chip_smoke.timed_run``) and a SHA-256 of ``deno`` and of ``basic``.
+Then times K3 (``dense_dist``) on one dt = 0 plane at the all-rows
+search's four 480p shapes (stage 0 levels 0, 1, 2 and stage 1 level 0,
+with a SHA-256 of each plane), then K1 (``patch_dist``)
 at the main path's launch shapes (a 4096-site chunk of the API default's
 interior sites at stage 0 levels 0, 1, 2 and stage 1 level 0, the bench
 config's 46,046 stage-1 sites, and the window-start entry on 4096 sites of
@@ -67,7 +71,8 @@ def main():
 
     paths = (("bench", bench), ("api_zero", None),
              ("poly_pallas", vt.default_config(20.0, poly_impl="pallas")),
-             ("preset_default", vt.default_config(20.0, preset="default")))
+             ("preset_default", vt.default_config(20.0, preset="default")),
+             ("dense_full", vt.default_config(20.0, dense_rows="full")))
     for name, cfg in paths:
         if not runs:
             break
@@ -79,7 +84,7 @@ def main():
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         _, per = timed_run(vt, noisy, dev, cfg, None)
         dev_ms = {}
-        for kern in ("patch_dist", "econ_filter"):
+        for kern in ("patch_dist", "econ_filter", "dense_dist"):
             vals = [v for k, v in per.items() if k[0] == kern]
             dev_ms[kern] = (sum(v[0] for v in vals), sum(v[1] for v in vals))
         sha = {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()[:16]
@@ -94,12 +99,35 @@ def main():
               f"k1_launches={dev_ms['patch_dist'][1]} "
               f"k2_device_ms={dev_ms['econ_filter'][0]:.2f} "
               f"k2_launches={dev_ms['econ_filter'][1]} "
+              f"k3_device_ms={dev_ms['dense_dist'][0]:.2f} "
+              f"k3_launches={dev_ms['dense_dist'][1]} "
               f"sha_deno={sha['deno']} sha_basic={sha['basic']}", flush=True)
         del deno, basic
     from vnlb_tpu_torch.ops import color
+    from vnlb_tpu_torch.ops.dense_dist import dense_dist
     from vnlb_tpu_torch.ops.patch_dist import patch_dist
+    from vnlb_tpu_torch.ops.search import search_levels
 
-    for name, _, args, kw in k1_cases(vt, color.rgb2yuv(noisy), bench, dev):
+    yuv = color.rgb2yuv(noisy)
+    api = vt.default_config(20.0)
+    for name, scfg, lvl in (("s0.l0", api.stage(0), 0),
+                            ("s0.l1", api.stage(0), 1),
+                            ("s0.l2", api.stage(0), 2),
+                            ("s1.l0", api.stage(1), 0)):
+        v_l = search_levels(yuv, scfg)[lvl]
+        args = (v_l, 0, scfg.pt, scfg.ps, scfg.w_s)
+        sha = hashlib.sha256(dense_dist(*args).cpu().numpy().tobytes())
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(5):
+            dense_dist(*args)
+        stop.record()
+        torch.cuda.synchronize()
+        print(f"[ab] tag={tag} path=k3_{name} level={tuple(v_l.shape)} "
+              f"ms={start.elapsed_time(stop) / 5:.4f} "
+              f"sha={sha.hexdigest()[:16]}", flush=True)
+        del v_l
+    for name, _, args, kw in k1_cases(vt, yuv, bench, dev):
         patch_dist(*args, **kw)
         start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
@@ -114,7 +142,6 @@ def main():
     from vnlb_tpu_torch.ops.poly_filter import poly_filter
 
     rng = np.random.default_rng(0)
-    api = vt.default_config(20.0)
     dflt0 = vt.default_config(20.0, preset="default").stage(0)
     f32 = dict(poly_bf16=False)
     # (name, kernel, groups, K, p, stage config, launches timed)

@@ -13,8 +13,10 @@ import pytest
 import torch
 
 import vnlb_tpu_torch as vt
+from vnlb_tpu_torch.ops.dense_dist import card_plan as k3_card_plan
 from vnlb_tpu_torch.ops.dense_dist import (dense_dist, dense_dist_plain,
                                            frame_range)
+from vnlb_tpu_torch.ops.dense_dist import plan as k3_plan
 from vnlb_tpu_torch.ops import poly_filter as k5
 from vnlb_tpu_torch.ops.econ_filter import (BLOCKS_PER_SM, design,
                                             econ_filter, econ_filter_kernel,
@@ -520,14 +522,29 @@ def _box(x, ps):
                                           stride=1)[:, 0] * ps * ps
 
 
+def _k3_case(pt, c_d, w_s, ps, dt, h=61, w=67):
+    """A case's id: its parameters, and its frame when not 61x67."""
+    tag = "-".join(map(str, (pt, c_d, w_s, ps, dt)))
+    return pytest.param(pt, c_d, w_s, ps, dt, h, w,
+                        id=tag if (h, w) == (61, 67) else f"{tag}-{h}x{w}")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("pt,c_d,w_s,ps,dt", [
-    (1, 1, 15, 7, 0), (1, 1, 15, 7, -2), (2, 3, 15, 7, 1), (2, 3, 27, 7, 0),
-    (1, 3, 9, 5, 2)])
-def test_dense_dist_kernel_matches_plain(card, pt, c_d, w_s, ps, dt):
+@pytest.mark.parametrize("pt,c_d,w_s,ps,dt,h,w", [
+    _k3_case(1, 1, 15, 7, 0), _k3_case(1, 1, 15, 7, -2),
+    _k3_case(2, 3, 15, 7, 1), _k3_case(2, 3, 27, 7, 0),
+    _k3_case(1, 3, 9, 5, 2),
+    # ps 3 and 9 (W' = 65, 59: not whole strips of 8)
+    _k3_case(2, 3, 15, 3, 1), _k3_case(2, 3, 15, 9, 0),
+    _k3_case(1, 1, 27, 9, -1),
+    # H' shorter than one tile; a frame narrower than one strip
+    _k3_case(1, 1, 15, 7, 0, 12, 67), _k3_case(2, 3, 15, 7, 1, 12, 13),
+    # w_s = 27 at pt*C = 6 (16-column tiles) and dt < 0 (f_lo > 0)
+    _k3_case(2, 3, 27, 7, -2), _k3_case(2, 3, 15, 7, -2, 40, 90)])
+def test_dense_dist_kernel_matches_plain(card, pt, c_d, w_s, ps, dt, h, w):
     """K3 against its plain version: |d| <= 1e-5 (q2 + b2) + 1e-3."""
     rng = np.random.default_rng(7)
-    vid = torch.from_numpy(rng.uniform(0, 255, (5, c_d, 61, 67))
+    vid = torch.from_numpy(rng.uniform(0, 255, (5, c_d, h, w))
                            .astype(np.float32)).to(card)
     before = dense_dist.launches
     got = dense_dist(vid, dt, pt, ps, w_s)
@@ -544,6 +561,32 @@ def test_dense_dist_kernel_matches_plain(card, pt, c_d, w_s, ps, dt):
                          for a in range(w_s) for b in range(w_s)], -1)
     assert got.shape == want.shape == scale.shape
     assert ((got - want).abs() <= 1e-5 * scale + 1e-3).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pt,c_d,w_s", [(1, 1, 15), (2, 3, 15), (2, 3, 27)])
+def test_dense_dist_kernel_repeats_bitwise(card, pt, c_d, w_s):
+    """Two launches on the same input give the same bits (no atomics, a
+    fixed order of sums)."""
+    rng = np.random.default_rng(8)
+    vid = torch.from_numpy(rng.uniform(0, 255, (5, c_d, 70, 90))
+                           .astype(np.float32)).to(card)
+    first = dense_dist(vid, 1, pt, 7, w_s)
+    again = dense_dist(vid, 1, pt, 7, w_s)
+    assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps,w_s,ptc,h,w,n_f", [
+    (7, 15, 6, 480, 854, 4), (7, 15, 1, 480, 854, 5), (7, 15, 1, 240, 427, 5),
+    (7, 15, 1, 148, 854, 3), (7, 27, 6, 480, 854, 4), (7, 27, 2, 61, 67, 3),
+    (3, 15, 6, 61, 67, 4), (9, 27, 3, 61, 67, 2), (5, 9, 3, 12, 13, 1)])
+def test_dense_dist_plan_matches_library(card, ps, w_s, ptc, h, w, n_f):
+    """ops/dense_dist.plan mirrors the library's launch plan, and the card
+    grants the blocks per SM the plan claims."""
+    got, per_sm = k3_card_plan(ps, w_s, ptc, h, w, n_f)
+    assert got == k3_plan(ps, w_s, ptc, h, w, n_f)
+    assert per_sm >= got["blocks_per_sm"]
 
 
 @pytest.mark.cuda

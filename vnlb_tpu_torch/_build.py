@@ -56,6 +56,7 @@ SIGNATURES = {
                            _I, _I, _I, _P, _P, _P], _I),
     "vnlb_dense_dist": ([_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
                         _I),
+    "vnlb_dense_dist_plan": ([_I, _I, _I, _I, _I, _I, _P], _I),
 }
 
 

@@ -19,176 +19,376 @@
 // What bounds it on the H100: the output write, n_f*H'*W'*w_s^2 f32
 // (1.81 GB for a 5-frame 480x854 plane at w_s=15, 0.54 ms at 3.35 TB/s);
 // the separable box needs ~2*pt*C + 2*(ps-1) + 3 f32 operations per value.
-// The TPU kernel keeps a full-width row band in VMEM; a block here holds a
-// 16 x 16 output tile with its halo (ps-1 + 2*half) of every plane in
-// shared memory (59 KB at pt*C = 6, w_s = 15), computes q2 and b2 of the
-// tile once, and gives each thread one offset delta: the thread sums the
-// ps-wide row products of each column (rows shared by ps outputs, the
-// separable box) and adds ps of them per output, so a warp writes 32
-// consecutive distances of one corner (coalesced stores).  The candidate
-// tiles' row pitch is congruent to w_s mod 32, so the lanes' reads at
-// a*pitch + b fall in 32 distinct banks; the query reads are broadcasts.
-// Each multiply-add still loads two shared-memory words, so the kernel is
-// bound by shared-memory bandwidth, several times above the write bound;
-// register tiling over neighbouring columns is left to a later change.
+// Above the write: at pt*C = 6 the shared-memory loads of the products, at
+// pt*C = 1 the instruction slots of the box sums and of the stores.
+//
+// The design.  A block holds a tile_h x tile_w output tile with its halo
+// (ps - 1 + w_s - 1 rows and columns) of every plane in shared memory and
+// works in column strips of kNX outputs.  A work item is one (strip,
+// offset delta) pair, and a thread takes one item at a time:
+// * Sliding box in registers.  The thread walks the tile's rows top to
+//   bottom.  For row r it forms the kNX + ps - 1 pixel products
+//   P(r, x) = sum_p q*g once, takes the kNX horizontal ps-sums h(r, x) from
+//   those registers into a ring of ps rows, and when row r completes
+//   output row y = r - ps + 1 it adds the ring's ps rows in order
+//   (h(y) + h(y+1) + ..., direct sums, no running-sum subtraction) and
+//   writes the row's kNX distances.  Each pixel product is formed once per
+//   offset: 22 rows * 14 products * 6 planes / 128 outputs = 14.4 FMAs an
+//   output at stage 1 (tile_h 16, ps 7), where the one-column-at-a-time
+//   kernel this replaces formed 57.75.
+// * Loads.  The query tile's rows are padded to whole float4s and a
+//   strip's query values load as float4 broadcasts (all lanes of a strip
+//   share them): 4 + 14 loads for 14 FMAs a row and plane at ps 7.  The
+//   candidate tile's row pitch is congruent to w_s mod 32, so the lanes'
+//   reads at a*pitch + b fall in 32 distinct banks.  The tile is filled
+//   by 4-byte cp.async copies, all of a thread's in flight at once (no
+//   pipeline across tiles: with two blocks an SM, one block's fill
+//   overlaps the other's arithmetic).
+// * q2 and b2 by a separable box: row sums into shared memory, then
+//   column sums, instead of ps^2 products a position.
+// * Stores stream (st.global.cs): the plane is far beyond L2 and nothing
+//   reads it back here.  (A branch-free predicated store in inline PTX
+//   made stage 0 25% slower: 1.54 against 1.15 ms at s0.l0.)
+// * Warps.  A strip's w_s^2 offsets are cut into whole warps of 32
+//   consecutive offsets (a warp writes one 128-byte run of a corner) and
+//   the strips' last w_s^2 mod 32 offsets are packed into tail warps.
+//   Warp w takes whole warps w, w + 8, ... of strip 0, then of strip 1,
+//   ..., so the block's warps finish a strip's corners together; the tail
+//   warps go to the warps with fewer whole ones.  At w_s = 15: 7 whole
+//   warps a strip and one tail warp of 4 lanes (one per strip), where 256
+//   threads on 225 offsets left a warp with one live lane.  A tile at the
+//   right edge skips its strips past the frame.
+// * Tile.  tile_h is 16, chosen by measurement against 32 (NVIDIA H100
+//   80GB HBM3, 700 W, scripts/torch_ab.py on a copy with kTileH = 32,
+//   before the warp order and the fill took their final form, two runs
+//   each: s1.l0 2.046 / 2.072 ms at 16 against 1.946 / 1.942 at
+//   32, but s0.l0 1.280 / 1.255 against 1.391 / 1.398, s0.l1 0.365 /
+//   0.370 against 0.395 / 0.416; a dense_rows="full" run launches 27
+//   stage-0 planes to 7 of stage 1).  tile_w is the widest of 32, 16, 8
+//   whose shared memory lets kMinBlocks blocks share an SM (w_s = 15: 32
+//   at every stage; w_s = 27: 16 at stage 1, 106 / 101 KB); one block per
+//   SM at tile_w 8 only where nothing else fits.
+//
+// `vnlb_dense_dist_plan` returns the launch plan (mirrored by
+// ops/dense_dist.plan) and the blocks per SM the card grants it.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileH = 16;  // output rows per block
-constexpr int kTileW = 16;  // output columns per block
+constexpr int kWarps = kThreads / 32;
+constexpr int kMinBlocks = 2;     // blocks per SM the design is built for
+constexpr int kNX = 8;            // outputs of a column strip
+constexpr int kTileH = 16;        // output rows of a tile
+constexpr int kTileW[] = {32, 16, 8};
+constexpr int kSmSmem = 233472;   // shared memory of an SM (228 KB)
+constexpr int kBlockSmem = 232448;  // most a block may take (227 KB)
+constexpr int kReserved = 1024;   // the system's share per resident block
 
 // smallest pitch >= width that is congruent to w_s modulo 32
-__host__ __device__ inline int bank_pitch(int width, int w_s) {
+inline int bank_pitch(int width, int w_s) {
   return width + (((w_s - width) % 32) + 32) % 32;
 }
 
-struct Layout {
-  int qh, qw, dh, dw, dpitch, bh, bw, bpitch;
-  size_t floats(int ptc) const {
-    return (size_t)ptc * qh * qw + (size_t)ptc * dh * dpitch +
-           (size_t)bh * bpitch + (size_t)kTileH * kTileW;
-  }
+inline int round4(int n) { return (n + 3) / 4 * 4; }
+
+// The shared-memory layout of a tile and the launch that goes with it.
+// Regions, in floats, each starting on a float4: the query tile (ptc,
+// qrows, qpitch), the candidate tile (ptc, drows, dpitch), b2 (bh,
+// bpitch), q2 (tile_h, tile_w), the candidate row sums (drows, bw), the
+// query row sums (qrows, tile_w).
+struct Plan {
+  int th, tw, strips, items, full, tail_tasks, tasks, qrows, qpitch, drows,
+      dw, dpitch, bh, bw, bpitch, smem, blocks, gx, gy, gz;
+  int q_off, d_off, b2_off, q2_off, rg_off, rq_off;
 };
 
-__host__ __device__ inline Layout layout(int ps, int w_s) {
-  const int half = (w_s - 1) / 2;
-  Layout l;
-  l.qh = kTileH + ps - 1;
-  l.qw = kTileW + ps - 1;
-  l.dh = l.qh + 2 * half;
-  l.dw = l.qw + 2 * half;
-  l.dpitch = bank_pitch(l.dw, w_s);
-  l.bh = kTileH + 2 * half;
-  l.bw = kTileW + 2 * half;
-  l.bpitch = bank_pitch(l.bw, w_s);
-  return l;
+inline Plan tile_plan(int ps, int w_s, int ptc, int th, int tw) {
+  Plan p{};
+  p.th = th;
+  p.tw = tw;
+  p.strips = tw / kNX;
+  p.items = p.strips * w_s * w_s;
+  // each strip's offsets in whole warps, then the strips' w_s^2 mod 32
+  // last offsets packed into tail warps
+  p.full = w_s * w_s / 32;
+  p.tail_tasks = (p.strips * (w_s * w_s - 32 * p.full) + 31) / 32;
+  p.tasks = p.strips * p.full + p.tail_tasks;
+  p.qrows = th + ps - 1;
+  // a strip's kNX + ps - 1 query values load as whole float4s
+  p.qpitch = tw - kNX + round4(kNX + ps - 1);
+  // the window's w_s - 1 rows and columns beyond the query tile
+  p.drows = p.qrows + w_s - 1;
+  p.dw = tw + ps - 1 + w_s - 1;
+  p.dpitch = bank_pitch(p.dw, w_s);
+  p.bh = th + w_s - 1;
+  p.bw = tw + w_s - 1;
+  p.bpitch = bank_pitch(p.bw, w_s);
+  p.q_off = 0;
+  p.d_off = p.q_off + round4(ptc * p.qrows * p.qpitch);
+  p.b2_off = p.d_off + round4(ptc * p.drows * p.dpitch);
+  p.q2_off = p.b2_off + round4(p.bh * p.bpitch);
+  p.rg_off = p.q2_off + round4(th * tw);
+  p.rq_off = p.rg_off + round4(p.drows * p.bw);
+  p.smem = (p.rq_off + round4(p.qrows * tw)) * (int)sizeof(float);
+  const int fit = kSmSmem / (p.smem + kReserved);
+  p.blocks = fit < kMinBlocks ? fit : kMinBlocks;
+  return p;
+}
+
+// The widest tile whose shared memory lets kMinBlocks blocks share an SM,
+// else the narrowest if one block fits; blocks = 0 when none fits.
+Plan make_plan(int ps, int w_s, int ptc, int H, int W, int n_f) {
+  Plan p{};
+  for (int tw : kTileW) {
+    p = tile_plan(ps, w_s, ptc, kTileH, tw);
+    if (p.blocks >= kMinBlocks) break;
+  }
+  if (p.smem > kBlockSmem) p.blocks = 0;
+  const int hp = H - ps + 1, wp = W - ps + 1;
+  p.gx = (wp + p.tw - 1) / p.tw;
+  p.gy = (hp + p.th - 1) / p.th;
+  p.gz = n_f;
+  return p;
+}
+
+// A 4-byte cp.async into shared memory; zero-filled (src not read) when
+// !ok.
+__device__ __forceinline__ void copy4(float* dst, const float* src,
+                                      bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+// The kNX + PS - 1 products P(x) = sum_k q_k(x) * g_k(x) of one row: q from
+// the query row (float4 broadcasts), g from the candidate row.
+template <int PS>
+__device__ __forceinline__ void row_products(const float* __restrict__ q,
+                                             const float* __restrict__ g,
+                                             int ptc, int qplane, int dplane,
+                                             float (&p)[kNX + PS - 1]) {
+  constexpr int NP = kNX + PS - 1;
+  constexpr int NQ4 = (NP + 3) / 4;
+#pragma unroll
+  for (int v = 0; v < NQ4; ++v) {
+    const float4 qv = reinterpret_cast<const float4*>(q)[v];
+    const float qs[4] = {qv.x, qv.y, qv.z, qv.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (4 * v + e < NP) p[4 * v + e] = qs[e] * g[4 * v + e];
+  }
+  for (int k = 1; k < ptc; ++k) {
+    q += qplane;
+    g += dplane;
+#pragma unroll
+    for (int v = 0; v < NQ4; ++v) {
+      const float4 qv = reinterpret_cast<const float4*>(q)[v];
+      const float qs[4] = {qv.x, qv.y, qv.z, qv.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (4 * v + e < NP) p[4 * v + e] = fmaf(qs[e], g[4 * v + e],
+                                                p[4 * v + e]);
+    }
+  }
 }
 
 template <int PS>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 dense_dist_kernel(const float* __restrict__ vid, int C, int H, int W, int pt,
-                  int w_s, int dt, int f_lo, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const Layout l = layout(PS, w_s);
+                  int w_s, int dt, int f_lo, Plan pl,
+                  float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
   const int half = (w_s - 1) / 2;
   const int ptc = pt * C;
   const int hp = H - PS + 1, wp = W - PS + 1;
   const int ws2 = w_s * w_s;
-  const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
+  const int x0 = blockIdx.x * pl.tw, y0 = blockIdx.y * pl.th;
   const int fo = blockIdx.z, f = f_lo + fo;
-  const int qplane = l.qh * l.qw, dplane = l.dh * l.dpitch;
-  float* vq = smem;                    // (ptc, qh, qw) query tile
-  float* vd = vq + ptc * qplane;       // (ptc, dh, dpitch) candidate tile
-  float* b2 = vd + ptc * dplane;       // (bh, bpitch) candidate energies
-  float* q2 = b2 + l.bh * l.bpitch;    // (kTileH, kTileW) query energies
+  const int qplane = pl.qrows * pl.qpitch, dplane = pl.drows * pl.dpitch;
+  float* vq = smem + pl.q_off;
+  float* vd = smem + pl.d_off;
+  float* b2 = smem + pl.b2_off;
+  float* q2 = smem + pl.q2_off;
+  float* rg = smem + pl.rg_off;
+  float* rq = smem + pl.rq_off;
   const size_t hw = (size_t)H * W;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  for (int e = threadIdx.x; e < ptc * qplane; e += blockDim.x) {
-    const int k = e / qplane, r = e - k * qplane;
-    const int fp = k / C, c = k - fp * C;
-    const int yy = y0 + r / l.qw, xx = x0 + r % l.qw;
-    float v = 0.f;
-    if (yy < H && xx < W)
-      v = vid[((size_t)(f + fp) * C + c) * hw + (size_t)yy * W + xx];
-    vq[e] = v;
+  // ---- fill: one warp per (plane, row), lanes along the row; every
+  // copy of the thread in flight at once ----
+  for (int kr = warp; kr < ptc * pl.qrows; kr += kWarps) {
+    const int k = kr / pl.qrows, r = kr - k * pl.qrows;
+    const int fp = k / C, c = k - fp * C, yy = y0 + r;
+    const bool row_ok = yy < H;
+    const float* src = vid + ((size_t)(f + fp) * C + c) * hw +
+                       (size_t)(row_ok ? yy : 0) * W;
+    float* dst = vq + k * qplane + r * pl.qpitch;
+    for (int x = lane; x < pl.qpitch; x += 32) {
+      const int xx = x0 + x;
+      const bool ok = row_ok && xx < W;
+      copy4(dst + x, src + (ok ? xx : 0), ok);
+    }
   }
-  const int dsz = l.dh * l.dw;
-  for (int e = threadIdx.x; e < ptc * dsz; e += blockDim.x) {
-    const int k = e / dsz, r = e - k * dsz;
-    const int fp = k / C, c = k - fp * C;
-    const int ry = r / l.dw, rx = r - ry * l.dw;
-    const int yy = y0 - half + ry, xx = x0 - half + rx;
-    float v = 0.f;
-    if (yy >= 0 && yy < H && xx >= 0 && xx < W)
-      v = vid[((size_t)(f + dt + fp) * C + c) * hw + (size_t)yy * W + xx];
-    vd[k * dplane + ry * l.dpitch + rx] = v;
+  for (int kr = warp; kr < ptc * pl.drows; kr += kWarps) {
+    const int k = kr / pl.drows, r = kr - k * pl.drows;
+    const int fp = k / C, c = k - fp * C, yy = y0 - half + r;
+    const bool row_ok = yy >= 0 && yy < H;
+    const float* src = vid + ((size_t)(f + dt + fp) * C + c) * hw +
+                       (size_t)(row_ok ? yy : 0) * W;
+    float* dst = vd + k * dplane + r * pl.dpitch;
+    for (int x = lane; x < pl.dw; x += 32) {
+      const int xx = x0 - half + x;
+      const bool ok = row_ok && xx >= 0 && xx < W;
+      copy4(dst + x, src + (ok ? xx : 0), ok);
+    }
   }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
-  for (int e = threadIdx.x; e < l.bh * l.bw; e += blockDim.x) {
-    const int ry = e / l.bw, rx = e - ry * l.bw;
-    const int gy = y0 - half + ry, gx = x0 - half + rx;
+  // ---- q2 and b2: row sums of the squares, then column sums ----
+  for (int e = threadIdx.x; e < pl.drows * pl.bw; e += kThreads) {
+    const int r = e / pl.bw, x = e - r * pl.bw;
+    const float* g = vd + r * pl.dpitch + x;
+    float s = 0.f;
+    for (int k = 0; k < ptc; ++k, g += dplane) {
+#pragma unroll
+      for (int j = 0; j < PS; ++j) s = fmaf(g[j], g[j], s);
+    }
+    rg[e] = s;
+  }
+  for (int e = threadIdx.x; e < pl.qrows * pl.tw; e += kThreads) {
+    const int r = e / pl.tw, x = e - r * pl.tw;
+    const float* q = vq + r * pl.qpitch + x;
+    float s = 0.f;
+    for (int k = 0; k < ptc; ++k, q += qplane) {
+#pragma unroll
+      for (int j = 0; j < PS; ++j) s = fmaf(q[j], q[j], s);
+    }
+    rq[e] = s;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < pl.bh * pl.bw; e += kThreads) {
+    const int y = e / pl.bw, x = e - y * pl.bw;
+    const int gy = y0 - half + y, gx = x0 - half + x;
     float s = 0.f;
     if (gy >= 0 && gy < hp && gx >= 0 && gx < wp) {
-      for (int k = 0; k < ptc; ++k) {
-        const float* g = vd + k * dplane + ry * l.dpitch + rx;
-        for (int i = 0; i < PS; ++i) {
 #pragma unroll
-          for (int j = 0; j < PS; ++j) s = fmaf(g[i * l.dpitch + j],
-                                                g[i * l.dpitch + j], s);
-        }
-      }
+      for (int i = 0; i < PS; ++i) s += rg[(y + i) * pl.bw + x];
     }
-    b2[ry * l.bpitch + rx] = s;
+    b2[y * pl.bpitch + x] = s;
   }
-  for (int e = threadIdx.x; e < kTileH * kTileW; e += blockDim.x) {
-    const int ry = e / kTileW, rx = e - ry * kTileW;
+  for (int e = threadIdx.x; e < pl.th * pl.tw; e += kThreads) {
     float s = 0.f;
-    for (int k = 0; k < ptc; ++k) {
-      const float* q = vq + k * qplane + ry * l.qw + rx;
-      for (int i = 0; i < PS; ++i) {
 #pragma unroll
-        for (int j = 0; j < PS; ++j) s = fmaf(q[i * l.qw + j],
-                                              q[i * l.qw + j], s);
-      }
-    }
+    for (int i = 0; i < PS; ++i) s += rq[e + i * pl.tw];
     q2[e] = s;
   }
   __syncthreads();
 
-  const int ny = min(kTileH, hp - y0), nx = min(kTileW, wp - x0);
-  for (int d = threadIdx.x; d < ws2; d += blockDim.x) {
-    const int a = d / w_s, b = d - a * w_s;
-    const float* vdd = vd + a * l.dpitch + b;
-    const float* b2d = b2 + a * l.bpitch + b;
-    for (int xc = 0; xc < nx; ++xc) {
-      // h[r]: the ps-wide row products of tile row r at column xc
-      float h[kTileH + PS - 1];
+  // ---- distances: one (strip, offset) item a thread at a time.  Warp w
+  // takes chunks w, w + kWarps, ... of 32 offsets of strip 0, then of
+  // strip 1, ..., so the warps finish a strip's corners together; then
+  // the tail tasks (w - full) mod kWarps, +kWarps, ... ----
+  const int ny = min(pl.th, hp - y0), nx = min(pl.tw, wp - x0);
+  const int rows = ny + PS - 1;
+  const int tl = ws2 - 32 * pl.full;
+  const int per = warp < pl.full ? (pl.full - warp + kWarps - 1) / kWarps : 0;
+  const int n_full = pl.strips * per;
+  const int t0 = ((warp - pl.full) % kWarps + kWarps) % kWarps;
+  const int n_tail =
+      t0 < pl.tail_tasks ? (pl.tail_tasks - t0 + kWarps - 1) / kWarps : 0;
+  const size_t row_stride = (size_t)wp * ws2;
+  for (int task = 0; task < n_full + n_tail; ++task) {
+    int s, d;
+    if (task < n_full) {
+      s = task / per;
+      d = 32 * (warp + kWarps * (task - s * per)) + lane;
+    } else {
+      const int it = 32 * (t0 + kWarps * (task - n_full)) + lane;
+      if (it >= pl.strips * tl) continue;
+      s = it / tl;
+      d = 32 * pl.full + it - s * tl;
+    }
+    if (s * kNX >= nx) continue;
+    const int a = d / w_s, b = d - a * w_s, xs = s * kNX;
+    const int nxs = min(kNX, nx - xs);
+    const float* q_s = vq + xs;
+    const float* g_s = vd + a * pl.dpitch + b + xs;
+    const float* b2_s = b2 + a * pl.bpitch + b + xs;
+    const float* q2_s = q2 + xs;
+    float* o_s = out + (((size_t)fo * hp + y0) * wp + x0 + xs) * ws2 + d;
+    float hr[PS][kNX];  // ring: the horizontal sums of the last PS rows
+    for (int r0 = 0; r0 < rows; r0 += PS) {
 #pragma unroll
-      for (int r = 0; r < kTileH + PS - 1; ++r) {
-        float s = 0.f;
-        for (int k = 0; k < ptc; ++k) {
-          const float* q = vq + k * qplane + r * l.qw + xc;
-          const float* g = vdd + k * dplane + r * l.dpitch + xc;
+      for (int u = 0; u < PS; ++u) {
+        const int r = r0 + u;  // r % PS == u
+        if (r < rows) {
+          float p[kNX + PS - 1];
+          row_products<PS>(q_s + r * pl.qpitch, g_s + r * pl.dpitch, ptc,
+                           qplane, dplane, p);
 #pragma unroll
-          for (int j = 0; j < PS; ++j) s = fmaf(q[j], g[j], s);
-        }
-        h[r] = s;
-      }
-      float* o = out + (((size_t)fo * hp + y0) * wp + x0 + xc) * ws2 + d;
+          for (int x = 0; x < kNX; ++x) {
+            float h = p[x];
 #pragma unroll
-      for (int y = 0; y < kTileH; ++y) {
-        if (y < ny) {
-          float cross = h[y];
+            for (int j = 1; j < PS; ++j) h += p[x + j];
+            hr[u][x] = h;
+          }
+          if (r >= PS - 1) {
+            const int y = r - PS + 1;  // rows y .. r sit in ring slots
+                                       // (u + 1) % PS, (u + 2) % PS, ...
+            const float4* q2v =
+                reinterpret_cast<const float4*>(q2_s + y * pl.tw);
+            float q2r[kNX];
 #pragma unroll
-          for (int i = 1; i < PS; ++i) cross += h[y + i];
-          o[(size_t)y * wp * ws2] =
-              q2[y * kTileW + xc] + b2d[y * l.bpitch + xc] - 2.f * cross;
+            for (int v = 0; v < kNX / 4; ++v) {
+              const float4 t = q2v[v];
+              q2r[4 * v] = t.x;
+              q2r[4 * v + 1] = t.y;
+              q2r[4 * v + 2] = t.z;
+              q2r[4 * v + 3] = t.w;
+            }
+            float* o = o_s + (size_t)y * row_stride;
+#pragma unroll
+            for (int x = 0; x < kNX; ++x, o += ws2) {
+              float cross = hr[(u + 1) % PS][x];
+#pragma unroll
+              for (int i = 1; i < PS; ++i) cross += hr[(u + 1 + i) % PS][x];
+              // (q2 + b2) - 2 cross, one rounding: 2 cross is exact
+              const float v =
+                  fmaf(-2.f, cross, q2r[x] + b2_s[y * pl.bpitch + x]);
+              if (x < nxs) __stcs(o, v);
+            }
+          }
         }
       }
     }
+  }
+}
+
+const void* kernel_for(int ps) {
+  switch (ps) {
+    case 3: return (const void*)dense_dist_kernel<3>;
+    case 5: return (const void*)dense_dist_kernel<5>;
+    case 7: return (const void*)dense_dist_kernel<7>;
+    case 9: return (const void*)dense_dist_kernel<9>;
+    default: return nullptr;
   }
 }
 
 template <int PS>
 int launch(const float* vid, int C, int H, int W, int pt, int w_s, int dt,
-           int f_lo, int n_f, float* out, cudaStream_t stream) {
-  const Layout l = layout(PS, w_s);
-  const size_t smem = l.floats(pt * C) * sizeof(float);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
+           int f_lo, const Plan& pl, float* out, cudaStream_t stream) {
+  if (pl.smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         dense_dist_kernel<PS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        pl.smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int hp = H - PS + 1, wp = W - PS + 1;
-  dim3 grid((wp + kTileW - 1) / kTileW, (hp + kTileH - 1) / kTileH, n_f);
-  dense_dist_kernel<PS><<<grid, kThreads, smem, stream>>>(
-      vid, C, H, W, pt, w_s, dt, f_lo, out);
+  dim3 grid(pl.gx, pl.gy, pl.gz);
+  dense_dist_kernel<PS><<<grid, kThreads, pl.smem, stream>>>(
+      vid, C, H, W, pt, w_s, dt, f_lo, pl, out);
   return (int)cudaGetLastError();
 }
 
@@ -203,14 +403,48 @@ extern "C" int vnlb_dense_dist(const float* vid, int T, int C, int H, int W,
                                int n_f, float* out, void* stream) {
   if (n_f <= 0) return 0;
   if (f_lo < 0 || f_lo + dt < 0 || f_lo + n_f - 1 + pt - 1 >= T ||
-      f_lo + n_f - 1 + dt + pt - 1 >= T || H < ps || W < ps)
+      f_lo + n_f - 1 + dt + pt - 1 >= T || H < ps || W < ps || w_s < 1)
+    return (int)cudaErrorInvalidValue;
+  const Plan pl = make_plan(ps, w_s, pt * C, H, W, n_f);
+  if (pl.blocks < 1 || pl.gy > 65535 || pl.gz > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (ps) {
-    case 3: return launch<3>(vid, C, H, W, pt, w_s, dt, f_lo, n_f, out, s);
-    case 5: return launch<5>(vid, C, H, W, pt, w_s, dt, f_lo, n_f, out, s);
-    case 7: return launch<7>(vid, C, H, W, pt, w_s, dt, f_lo, n_f, out, s);
-    case 9: return launch<9>(vid, C, H, W, pt, w_s, dt, f_lo, n_f, out, s);
+    case 3: return launch<3>(vid, C, H, W, pt, w_s, dt, f_lo, pl, out, s);
+    case 5: return launch<5>(vid, C, H, W, pt, w_s, dt, f_lo, pl, out, s);
+    case 7: return launch<7>(vid, C, H, W, pt, w_s, dt, f_lo, pl, out, s);
+    case 9: return launch<9>(vid, C, H, W, pt, w_s, dt, f_lo, pl, out, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The launch plan of (ps, w_s, pt*C, H, W, n_f) into out[0..17], in the
+// order of ops/dense_dist.PLAN_FIELDS (threads, tile rows, tile columns,
+// strip width, strips, items, whole warps of a strip, tail warps, warp
+// tasks, query pitch, candidate rows, candidate pitch, b2 pitch, shared
+// bytes, blocks per SM of the design, grid x, y, z), then out[18] = the
+// blocks per SM that the card grants the kernel at that plan.  Returns a
+// cudaError_t (invalid value for an unsupported ps, or a shape whose tile
+// does not fit an SM).
+extern "C" int vnlb_dense_dist_plan(int ps, int w_s, int ptc, int H, int W,
+                                    int n_f, int* out) {
+  const void* fn = kernel_for(ps);
+  if (fn == nullptr || w_s < 1 || ptc < 1 || H < ps || W < ps)
+    return (int)cudaErrorInvalidValue;
+  const Plan pl = make_plan(ps, w_s, ptc, H, W, n_f);
+  if (pl.blocks < 1) return (int)cudaErrorInvalidValue;
+  const int v[18] = {kThreads,  pl.th,      pl.tw,    kNX,
+                     pl.strips, pl.items,   pl.full,  pl.tail_tasks,
+                     pl.tasks,  pl.qpitch,  pl.drows, pl.dpitch,
+                     pl.bpitch, pl.smem,    pl.blocks, pl.gx,
+                     pl.gy,     pl.gz};
+  for (int i = 0; i < 18; ++i) out[i] = v[i];
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads,
+                                                      pl.smem);
+  out[18] = blocks;
+  return (int)err;
 }

@@ -19,9 +19,16 @@ site-major (n_f, H', W', w_s^2): a site's candidates are one row.
 ``dense_dist`` dispatches by device: a CPU tensor takes the plain version
 ``dense_dist_plain``; a CUDA tensor launches the kernel, and a build or
 launch failure raises.  ``dense_dist.launches`` counts kernel launches.
+
+``plan`` mirrors the kernel's launch arithmetic (column strips with a
+sliding box in registers; the design is described in csrc/dense_dist.cu);
+``card_plan`` asks the kernel library for the same plan and the occupancy
+the card grants.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -29,10 +36,114 @@ import torch.nn.functional as F
 from .. import _build
 
 __all__ = ["dense_dist", "dense_dist_plain", "dense_dist_kernel",
-           "frame_range"]
+           "frame_range", "plan", "tasks_of_warp", "card_plan",
+           "PLAN_FIELDS"]
 
 # patch sizes the kernel is instantiated for
 KERNEL_PS = (3, 5, 7, 9)
+
+# the kernel's constants (csrc/dense_dist.cu)
+THREADS = 256
+BLOCKS_PER_SM = 2                 # __launch_bounds__ minimum
+STRIP_W = 8                       # outputs of a column strip
+TILE_H = 16
+TILE_W = (32, 16, 8)              # widest first
+SM_SMEM = 233472                  # 228 KB per SM on the H100
+BLOCK_SMEM_MAX = 232448           # 227 KB per block
+RESERVED = 1024                   # per resident block
+PLAN_FIELDS = ("threads", "tile_h", "tile_w", "strip_w", "strips", "items",
+               "full_chunks", "tail_tasks", "warp_tasks", "query_pitch",
+               "cand_rows", "cand_pitch", "b2_pitch", "smem_bytes",
+               "blocks_per_sm", "grid_x", "grid_y", "grid_z")
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _bank_pitch(width: int, w_s: int) -> int:
+    """Smallest pitch >= width congruent to w_s modulo 32."""
+    return width + (w_s - width) % 32
+
+
+def _tile_plan(ps: int, w_s: int, ptc: int, tw: int) -> dict:
+    th, strips, ws2 = TILE_H, tw // STRIP_W, w_s * w_s
+    tail_tasks = -(-strips * (ws2 % 32) // 32)
+    qrows, qpitch = th + ps - 1, tw - STRIP_W + _round4(STRIP_W + ps - 1)
+    drows, dw = qrows + w_s - 1, tw + ps - 1 + w_s - 1
+    bh, bw = th + w_s - 1, tw + w_s - 1
+    dpitch, bpitch = _bank_pitch(dw, w_s), _bank_pitch(bw, w_s)
+    floats = (_round4(ptc * qrows * qpitch) + _round4(ptc * drows * dpitch)
+              + _round4(bh * bpitch) + _round4(th * tw) + _round4(drows * bw)
+              + _round4(qrows * tw))
+    smem = floats * 4
+    return dict(threads=THREADS, tile_h=th, tile_w=tw, strip_w=STRIP_W,
+                strips=strips, items=strips * ws2, full_chunks=ws2 // 32,
+                tail_tasks=tail_tasks,
+                warp_tasks=strips * (ws2 // 32) + tail_tasks,
+                query_pitch=qpitch, cand_rows=drows, cand_pitch=dpitch,
+                b2_pitch=bpitch, smem_bytes=smem,
+                blocks_per_sm=min(SM_SMEM // (smem + RESERVED),
+                                  BLOCKS_PER_SM))
+
+
+def plan(ps: int, w_s: int, ptc: int, h: int, w: int, n_f: int) -> dict:
+    """The kernel's launch plan (csrc/dense_dist.cu ``make_plan``) for a
+    (T, C, h, w) level with ptc = pt*C planes and n_f output frames: a
+    block holds a tile_h x tile_w output tile (tile_w the widest of
+    ``TILE_W`` that lets BLOCKS_PER_SM blocks share an SM), cut into
+    column strips of strip_w outputs; an item is one (strip, offset) pair.
+    A warp task is 32 items: ``full_chunks`` whole warps of each strip's
+    offsets, then ``tail_tasks`` warps that pack the last w_s^2 mod 32
+    offsets of every strip (``warp_tasks`` in all; ``tasks_of_warp`` gives
+    a warp's share).  The grid is (tiles across, tiles down, frames).
+    Raises ValueError for a shape the kernel does not take."""
+    if ps not in KERNEL_PS:
+        raise ValueError(f"dense_dist kernel: ps={ps} not in {KERNEL_PS}")
+    if w_s < 1 or ptc < 1 or h < ps or w < ps:
+        raise ValueError(f"dense_dist kernel: no plan for w_s={w_s}, "
+                         f"ptc={ptc}, {h}x{w}")
+    for tw in TILE_W:
+        pl = _tile_plan(ps, w_s, ptc, tw)
+        if pl["blocks_per_sm"] >= BLOCKS_PER_SM:
+            break
+    if pl["smem_bytes"] > BLOCK_SMEM_MAX or pl["blocks_per_sm"] < 1:
+        raise ValueError(f"dense_dist kernel: a tile of w_s={w_s}, "
+                         f"ptc={ptc} needs {pl['smem_bytes']} B of shared "
+                         f"memory")
+    pl.update(grid_x=-(-(w - ps + 1) // pl["tile_w"]),
+              grid_y=-(-(h - ps + 1) // pl["tile_h"]), grid_z=n_f)
+    return pl
+
+
+def tasks_of_warp(pl: dict, warp: int) -> list:
+    """Warp ``warp``'s work in the kernel's order: for each lane a list of
+    (strip, offset) items, None for an idle lane.  Chunks warp, warp +
+    W, ... of 32 offsets of strip 0, then of strip 1, ...; then tail tasks
+    (warp - full_chunks) mod W, + W, ... (W = threads / 32)."""
+    n_w, full = pl["threads"] // 32, pl["full_chunks"]
+    ws2 = pl["items"] // pl["strips"]
+    tl = ws2 - 32 * full
+    work = []
+    for s in range(pl["strips"]):
+        for c in range(warp, full, n_w):
+            work.append([(s, 32 * c + lane) for lane in range(32)])
+    for t in range((warp - full) % n_w, pl["tail_tasks"], n_w):
+        its = [32 * t + lane for lane in range(32)]
+        work.append([(it // tl, 32 * full + it % tl)
+                     if it < pl["strips"] * tl else None for it in its])
+    return work
+
+
+def card_plan(ps: int, w_s: int, ptc: int, h: int, w: int, n_f: int
+              ) -> tuple[dict, int]:
+    """(the kernel library's plan, the blocks per SM the card grants the
+    kernel at it); needs the CUDA build."""
+    buf = (ctypes.c_int * 19)()
+    _build.check(_build.library().vnlb_dense_dist_plan(ps, w_s, ptc, h, w,
+                                                       n_f, buf),
+                 "dense_dist plan")
+    return dict(zip(PLAN_FIELDS, buf[:18])), buf[18]
 
 
 def frame_range(t_len: int, pt: int, dt: int):
@@ -106,6 +217,7 @@ def dense_dist_kernel(vid: torch.Tensor, dt: int, pt: int, ps: int,
         raise NotImplementedError(f"the K3 kernel is built for ps in "
                                   f"{KERNEL_PS}, got {ps}")
     t_len, c, h, w = vid.shape
+    plan(ps, w_s, pt * c, h, w, f_hi - f_lo)
     vid = vid.contiguous()
     out = torch.empty((f_hi - f_lo, h - ps + 1, w - ps + 1, w_s * w_s),
                       dtype=torch.float32, device=vid.device)

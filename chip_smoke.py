@@ -25,7 +25,15 @@ on the strips of a 4-strip split, the one-card strip runner over all four
 strips of both passes against the mask-border ``proc_nl``, and a 2-rank
 gloo world on the one card (``denoise_halo`` bitwise against the 2-strip
 composition, ``proc_nl_halo`` with the drift flow, ``denoise_sharded``,
-``denoise_streaming(mesh=...)`` of a 12x480x854 clip).  K2's and K5's
+``denoise_streaming(mesh=...)`` of a 12x480x854 clip).  Then the paths of
+estimated flow, the reference-order pass and the aggregation modes:
+``estimate_flows`` (TV-L1 and LK) of a 5x480x854 clip that moves 4 px a
+frame, on the card against the CPU, ``denoise`` with those flows (every
+site on K1's window-start entry) beside zero flow, ``denoise_compat``
+with the kernels, the plain versions and a repeat (K1, K2, K4), and one
+``denoise`` per aggregation mode (``agg_weight="exp"`` under both
+``dense_rows``, ``only_frame``, ``agg_bf16``, ``poly_gram=False``, whose
+second pass runs no K2) against its plain-version pass.  K2's and K5's
 lines name the design each group shape takes (tensor cores at width 64 or
 128, or shared memory), a tensor-core design's plan against its Python
 mirror and its stated blocks per SM, and the old design's time on the
@@ -807,6 +815,234 @@ def halo_world_phase(vt, noisy, clean, dev, drift, mono):
         reference_s=f"{time.perf_counter() - t1:.2f}")
 
 
+# the estimated-flow, reference-order and aggregation-mode phases: a
+# 480p clip that moves 4 px a frame; TV-L1 and LK on the card against the
+# same function on the CPU at tests/test_torch_flow_est.py's tolerances
+FLOW_MOTION = 4.0
+TVL1_MEAN, TVL1_MAX, LK_MAX = 1e-4, 0.25, 5e-4
+# one API-default denoise per aggregation mode (tests/test_torch_agg_modes)
+AGG_MODES = {"exp": dict(agg_weight="exp"),
+             "exp_dense_full": dict(agg_weight="exp", dense_rows="full"),
+             "only_frame": dict(only_frame=2), "agg_bf16": dict(agg_bf16=True),
+             "left_regime": dict(poly_gram=False)}
+
+
+def flow_est_phase(vt, noisy, dev):
+    """``estimate_flows`` of a 5x480x854 clip on the card, TV-L1 and LK:
+    wall per frame pair (synced), peak memory, mean |flow|; the first
+    forward and last backward pair held to the same function on the CPU.
+    Returns the TV-L1 (fflow, bflow) on the card."""
+    from vnlb_tpu_torch.ops.flow import estimate_flows, lk_flow, tvl1_flow
+
+    out = None
+    for method, one in (("tvl1", tvl1_flow), ("lk", lk_flow)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        ff, bf = estimate_flows(noisy, method=method, device=dev)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        pairs = 2 * (noisy.shape[0] - 1)
+        t0 = time.perf_counter()
+        cpu = [one(noisy[0], noisy[1], device="cpu"),
+               one(noisy[-1], noisy[-2], device="cpu")]
+        cpu_s = (time.perf_counter() - t0) / 2
+        d = torch.stack([(ff[0].cpu() - cpu[0]).abs(),
+                         (bf[-1].cpu() - cpu[1]).abs()])
+        mag = ff[:-1].abs().mean().item()
+        again = estimate_flows(noisy, method=method, device=dev)
+        repeat = torch.equal(again[0], ff) and torch.equal(again[1], bf)
+        log("flow_est", method=method, frames=noisy.shape[0], pairs=pairs,
+            seconds=f"{wall:.4f}", ms_per_pair=f"{1e3 * wall / pairs:.2f}",
+            cpu_ms_per_pair=f"{1e3 * cpu_s:.1f}",
+            peak_mem_gib=f"{peak / 2 ** 30:.3f}", mean_abs_flow=f"{mag:.4f}",
+            card_vs_cpu_max=f"{d.max().item():.3g}",
+            card_vs_cpu_mean=f"{d.mean().item():.3g}",
+            repeat_bitwise=repeat)
+        ok = (d.max().item() <= LK_MAX if method == "lk" else
+              d.mean().item() <= TVL1_MEAN and d.max().item() <= TVL1_MAX)
+        if not (ok and repeat and mag > 1.0 and torch.isfinite(ff).all()):
+            raise AssertionError(f"flow_est {method}: card vs CPU max "
+                                 f"{d.max().item()} mean {d.mean().item()}, "
+                                 f"mean |flow| {mag}, repeat {repeat}")
+        if method == "tvl1":
+            out = (ff, bf)
+        del ff, bf, again
+    return out
+
+
+def gather_launches(yuv, cfg):
+    """K1 launches of one ``denoise`` whose every site takes the gather
+    search: one per (site chunk, pyramid level) of each pass."""
+    from vnlb_tpu_torch.ops.mask import lattice_sites
+    from vnlb_tpu_torch.ops.search import search_levels
+    from vnlb_tpu_torch.pipeline import SITE_CHUNK
+
+    n = 0
+    for i in (0, 1):
+        s = lattice_sites(tuple(yuv.shape), cfg.stage(i)).shape[0]
+        n += -(-s // SITE_CHUNK) * len(search_levels(yuv, cfg.stage(i)))
+    return n
+
+
+def e2e_flow_phase(vt, noisy, clean, dev, counters, expect, flows):
+    """``denoise`` with the estimated flows (e2e: best of 3, a bitwise
+    repeat, the plain-version pass within 0.02 dB), every site on the
+    gather search (K1's window-start entry: its launches equal one per
+    site chunk and level), beside the zero-flow run of the same clip."""
+    from vnlb_tpu_torch.ops import color
+    from vnlb_tpu_torch.utils.metrics import compute_psnr
+
+    launches, deno, basic, per = e2e(vt, "e2e_flow_est", noisy, clean, dev,
+                                     counters, expect, flows=flows)
+    want = gather_launches(color.rgb2yuv(torch.from_numpy(noisy).to(dev)),
+                           vt.default_config(SIGMA))
+    windows = sum(n for k, (_, n) in per.items() if k[-1])
+    if not (launches["patch_dist"] == want == windows):
+        raise AssertionError(f"e2e_flow_est: {launches['patch_dist']} K1 "
+                             f"launches, {windows} with window starts, "
+                             f"predicted {want}")
+    z_deno, z_basic, z_s = vt.denoise(noisy, SIGMA, device=dev)
+    zero = [compute_psnr(x.cpu().numpy(), clean) for x in (z_basic, z_deno)]
+    gain = [compute_psnr(x.cpu().numpy(), clean) - z
+            for x, z in zip((basic, deno), zero)]
+    log("e2e_flow_est_vs_zero", k1_launches=want, k1_window_starts=windows,
+        zero_flow_seconds=f"{z_s:.4f}", zero_flow_psnr_basic=f"{zero[0]:.4f}",
+        zero_flow_psnr_deno=f"{zero[1]:.4f}", gain_basic_db=f"{gain[0]:.4f}",
+        gain_deno_db=f"{gain[1]:.4f}")
+    return launches
+
+
+def compat_phase(vt, noisy, clean, dev):
+    """``denoise_compat`` (the reference-order pass) with the kernels, with
+    the plain versions and a repeat: each pass's wall, batches and sites
+    drawn, K1 / K2 / K4 launches, PSNR, peak memory.  Returns the kernel
+    run's launches."""
+    import vnlb_tpu_torch.compat as compat
+    from vnlb_tpu_torch.ops.econ_filter import econ_filter
+    from vnlb_tpu_torch.ops.patch_dist import patch_dist
+    from vnlb_tpu_torch.ops.patch_gather import patch_gather
+    from vnlb_tpu_torch.utils.metrics import compute_psnr
+
+    counters = (patch_dist, econ_filter, patch_gather)
+    orig = compat.proc_nl_compat
+    walls, calls = [], []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = orig(*a, **kw)
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    def counting(gather):
+        def run(videos, inds, *a):
+            calls.append((len(videos), inds.shape[0]))
+            return gather(videos, inds, *a)
+        return run
+
+    runs = {}
+    compat.proc_nl_compat = timed
+    try:
+        for tag, kern in (("kernels", vt.KERNELS), ("plain", vt.PLAIN),
+                          ("repeat", vt.KERNELS)):
+            for c in counters:
+                c.launches = 0
+            walls.clear()
+            calls.clear()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            deno, basic = compat.denoise_compat(
+                noisy, SIGMA, device=dev,
+                kernels=kern._replace(
+                    patch_gather=counting(kern.patch_gather)))
+            peak = torch.cuda.max_memory_allocated(dev)
+            n = {c.__name__: c.launches for c in counters}
+            pb = compute_psnr(basic.cpu().numpy(), clean)
+            pd = compute_psnr(deno.cpu().numpy(), clean)
+            per = [(sum(1 for v, _ in calls if v == nv),
+                    sum(b for v, b in calls if v == nv)) for nv in (1, 2)]
+            runs[tag] = (deno, basic, pb, pd, n)
+            log("e2e_compat", run=tag, frames=noisy.shape[0],
+                pass_seconds=",".join(f"{w:.3f}" for w in walls),
+                batches=f"{per[0][0]},{per[1][0]}",
+                sites=f"{per[0][1]},{per[1][1]}",
+                psnr_basic=f"{pb:.4f}", psnr_deno=f"{pd:.4f}",
+                peak_mem_gib=f"{peak / 2 ** 30:.3f}", **n)
+    finally:
+        compat.proc_nl_compat = orig
+    d, b, pb, pd, n = runs["kernels"]
+    _, _, qb, qd, m = runs["plain"]
+    if not (min(n.values()) > 0 and max(m.values()) == 0):
+        raise AssertionError(f"e2e_compat: launches {n}, plain {m}")
+    if not (abs(pb - qb) < 0.02 and abs(pd - qd) < 0.02):
+        raise AssertionError(f"e2e_compat: kernels {pb}/{pd} vs plain "
+                             f"{qb}/{qd}")
+    if not (torch.equal(runs["repeat"][0], d)
+            and torch.equal(runs["repeat"][1], b)):
+        raise AssertionError("e2e_compat: repeat run is not bitwise equal")
+    if not pd >= compute_psnr(noisy, clean) + 6.0:
+        raise AssertionError(f"e2e_compat: deno {pd}")
+    return n
+
+
+def agg_modes_phase(vt, noisy, clean, dev, counters):
+    """One API-default ``denoise`` per aggregation mode with the kernels
+    (counted), a bitwise repeat and the plain-version pass within 0.02
+    dB; the left regime launches K2 only for the first pass's chunks."""
+    from vnlb_tpu_torch.ops import color
+    from vnlb_tpu_torch.pipeline import SITE_CHUNK, plan_sites
+    from vnlb_tpu_torch.utils.metrics import compute_psnr
+
+    shape = tuple(noisy.shape)
+    launches = {}
+    for name, kw in AGG_MODES.items():
+        cfg = vt.default_config(SIGMA, **kw)
+        for c in counters:
+            c.launches = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        deno, basic, sec = vt.denoise(noisy, SIGMA, cfg=cfg, device=dev)
+        n = {c.__name__: c.launches for c in counters}
+        peak = torch.cuda.max_memory_allocated(dev)
+        d2, b2, sec2 = vt.denoise(noisy, SIGMA, cfg=cfg, device=dev)
+        if not (torch.equal(d2, deno) and torch.equal(b2, basic)):
+            raise AssertionError(f"agg mode {name}: repeat not bitwise")
+        dp, bp, plain_s = vt.denoise(noisy, SIGMA, cfg=cfg, device=dev,
+                                     kernels=vt.PLAIN)
+        ps_ = [compute_psnr(x.cpu().numpy(), clean)
+               for x in (basic, deno, bp, dp)]
+        extra = {}
+        if name == "left_regime":
+            sites, n_dense = plan_sites(shape, cfg.stage(0), True)
+            s0_chunks = (-(-n_dense // SITE_CHUNK)
+                         + -(-(sites.shape[0] - n_dense) // SITE_CHUNK))
+            extra = dict(stage0_chunks=s0_chunks)
+            if n["econ_filter"] != s0_chunks:
+                raise AssertionError(f"left regime: {n['econ_filter']} K2 "
+                                     f"launches, {s0_chunks} first-pass "
+                                     f"chunks")
+        if name == "exp_dense_full" and n["dense_dist"] != k3_launches(
+                color.rgb2yuv(torch.from_numpy(noisy).to(dev)), cfg):
+            raise AssertionError(f"{name}: K3 launches {n}")
+        log("e2e_agg_modes", mode=name, seconds=f"{sec:.4f},{sec2:.4f}",
+            plain_seconds=f"{plain_s:.3f}", psnr_basic=f"{ps_[0]:.4f}",
+            psnr_deno=f"{ps_[1]:.4f}", plain_psnr_basic=f"{ps_[2]:.4f}",
+            plain_psnr_deno=f"{ps_[3]:.4f}",
+            peak_mem_gib=f"{peak / 2 ** 30:.3f}", repeat_bitwise=True,
+            **n, **extra)
+        if not (abs(ps_[0] - ps_[2]) < 0.02 and abs(ps_[1] - ps_[3]) < 0.02
+                and min(n["patch_dist"], n["patch_gather"]) > 0
+                and np.isfinite(deno.cpu().numpy()).all()):
+            raise AssertionError(f"agg mode {name}: PSNR {ps_}, launches {n}")
+        launches[name] = n
+        del deno, basic, d2, b2, dp, bp
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -1327,7 +1563,21 @@ def main():
     torch.cuda.empty_cache()
     halo_world_phase(vt, noisy, clean, dev, drift, mono)
 
-    # ---- 10. records ----
+    # ---- 10. estimated flow (TV-L1 and LK) on a clip that moves 4 px a
+    # frame, and denoise with it; the reference-order pass; the
+    # aggregation modes ----
+    torch.cuda.empty_cache()
+    m_clean = synthetic_video(T, H, W, seed=0, motion=FLOW_MOTION)
+    m_noisy = add_noise(m_clean, SIGMA, seed=1)
+    est = flow_est_phase(vt, m_noisy, dev)
+    launches["e2e_flow_est"] = e2e_flow_phase(vt, m_noisy, m_clean, dev,
+                                              counters, k124, est)
+    del est
+    torch.cuda.empty_cache()
+    launches["e2e_compat"] = compat_phase(vt, noisy, clean, dev)
+    launches.update(agg_modes_phase(vt, noisy, clean, dev, counters))
+
+    # ---- 11. records ----
     kms, pms, (k2_bms, k2_by) = k2_times["gram(s1)", 3 * 4096]
     g_kms, g_pms, (k4_bms, k4_by) = k4_times["s1"]
     p_kms, p_pms, (k5_bms, k5_by) = k5_times["left(s1)", 3 * 4096]

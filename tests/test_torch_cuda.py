@@ -752,3 +752,112 @@ def test_tile_search_all_rows_matches_plain(card, strip, mode):
     err = (vk - vp).abs()[fin]
     assert (err <= tol).all(), err.max().item()
     assert (ik == ip).float().mean().item() > 0.95
+
+
+# ---- estimated flow, the reference-order pass, the aggregation modes ----
+
+# tests/test_torch_flow_est.py's tolerances (the port against JAX on the
+# CPU), here the card against the CPU
+TVL1_MEAN, TVL1_MAX, LK_MAX = 1e-4, 0.25, 5e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["tvl1", "lk"])
+def test_estimate_flows_card_matches_cpu(card, method):
+    from vnlb_tpu_torch.ops.flow import estimate_flows
+
+    noisy = add_noise(synthetic_video(3, 72, 96, seed=11, motion=4.0), 20.0,
+                      seed=12)
+    got = estimate_flows(noisy, method=method, device=card)
+    want = estimate_flows(noisy, method=method, device="cpu")
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.shape == (3, 2, 72, 96)
+        d = (g.cpu() - w).abs()
+        if method == "lk":
+            assert d.max().item() <= LK_MAX
+        else:
+            assert d.mean().item() <= TVL1_MEAN
+            assert d.max().item() <= TVL1_MAX
+    again = estimate_flows(noisy, method=method, device=card)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.cuda
+def test_denoise_compat_kernels_match_plain(card):
+    """The reference-order pass launches K1, K2 and K4, repeats bitwise,
+    and lands within 0.02 dB of its plain-version pass."""
+    from vnlb_tpu_torch.compat import denoise_compat
+
+    clean = synthetic_video(3, 64, 72, seed=5)
+    noisy = add_noise(clean, 20.0, seed=6)
+    cfg = vt.default_config(20.0, bsize=[128, 128])
+    patch_dist.launches = econ_filter.launches = patch_gather.launches = 0
+    deno, basic = denoise_compat(noisy, 20.0, cfg=cfg, device=card)
+    assert min(patch_dist.launches, econ_filter.launches,
+               patch_gather.launches) > 0
+    d2, b2 = denoise_compat(noisy, 20.0, cfg=cfg, device=card)
+    assert torch.equal(d2, deno) and torch.equal(b2, basic)
+    dp, bp = denoise_compat(noisy, 20.0, cfg=cfg, device=card,
+                            kernels=vt.PLAIN)
+    for got, want in ((basic, bp), (deno, dp)):
+        assert abs(compute_psnr(got.cpu().numpy(), clean)
+                   - compute_psnr(want.cpu().numpy(), clean)) < 0.02
+    assert compute_psnr(deno.cpu().numpy(), clean) > \
+        compute_psnr(noisy, clean) + 3.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [dict(agg_weight="exp"),
+                                  dict(agg_weight="exp", dense_rows="full"),
+                                  dict(only_frame=2), dict(agg_bf16=True),
+                                  dict(poly_gram=False)])
+def test_agg_modes_kernels_match_plain(card, mode):
+    """Each aggregation mode with the kernels against the plain versions:
+    within 0.02 dB, a bitwise repeat; the left regime launches no K2 in
+    the second pass."""
+    clean = synthetic_video(5, 96, 112, seed=0)
+    noisy = add_noise(clean, 20.0, seed=1)
+    cfg = vt.default_config(20.0, **mode)
+    econ_filter.launches = 0
+    deno, basic, _ = vt.denoise(noisy, 20.0, cfg=cfg, device=card)
+    if "poly_gram" in mode:
+        n0 = econ_filter.launches
+        econ_filter.launches = 0
+        vt.proc_nl(torch.from_numpy(noisy).to(card), basic, None, None, None,
+                   cfg.stage(1))
+        assert n0 > 0 and econ_filter.launches == 0
+    again, _, _ = vt.denoise(noisy, 20.0, cfg=cfg, device=card)
+    assert torch.equal(again, deno)
+    dp, bp, _ = vt.denoise(noisy, 20.0, cfg=cfg, device=card,
+                           kernels=vt.PLAIN)
+    for got, want in ((basic, bp), (deno, dp)):
+        assert abs(compute_psnr(got.cpu().numpy(), clean)
+                   - compute_psnr(want.cpu().numpy(), clean)) < 0.02
+
+
+@pytest.mark.cuda
+def test_agg_patches_repeat_bitwise_on_card(card):
+    """The pixel scatter adds duplicates in a fixed order on the card: a
+    repeat is bitwise equal, and equal to the same scatter on the CPU
+    (the same additions in the same order)."""
+    from vnlb_tpu_torch.ops.agg import agg_patches
+
+    rng = np.random.default_rng(4)
+    shape = (4, 3, 40, 44)
+    inds = rng.integers(0, 4 * 3 * 40 * 44, (64, 30)).astype(np.int32)
+    inds[1] = inds[0]
+    inds[5, 3] = -1
+    patches = rng.normal(100, 30, (64, 30, 2, 3, 7, 7)).astype(np.float32)
+    valid = rng.uniform(size=64) < 0.9
+
+    def run(dev):
+        deno = torch.zeros((4 * 40 * 44, 3), device=dev)
+        wts = torch.zeros((4 * 40 * 44,), device=dev)
+        return agg_patches(deno, wts, torch.from_numpy(patches).to(dev),
+                           torch.from_numpy(inds).to(dev),
+                           torch.from_numpy(valid).to(dev), 2, 7, shape)
+
+    a, b = run(card), run(card)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    c = run("cpu")
+    assert torch.equal(a[0].cpu(), c[0]) and torch.equal(a[1].cpu(), c[1])

@@ -3,9 +3,9 @@ each pass and the two-pass ``denoise`` on a (5, 96, 112) clip at sigma=20
 with the bench config; the API default (no cfg: step 3, sliding borders)
 on a (4, 64, 72) clip with zero flow and with the clip's own drift flow;
 the search overrides ``dense_rows="full"`` and ``topk`` stream / approx
-on that clip; determinism; flow forms; unsupported configs raise (the
-filter modes that run are held to JAX by tests/test_torch_bayes_modes.py
-and tests/test_torch_presets.py)."""
+on that clip; determinism; flow forms (the filter modes are held to JAX
+by tests/test_torch_bayes_modes.py and tests/test_torch_presets.py, the
+aggregation modes by tests/test_torch_agg_modes.py)."""
 
 import numpy as np
 import pytest
@@ -92,18 +92,6 @@ def test_denoise_repeat_is_bitwise(clip, port_run):
                                 cfg=vt.default_config(20.0, **BENCH))
     np.testing.assert_array_equal(basic.numpy(), port_run[1])
     np.testing.assert_array_equal(deno.numpy(), port_run[0])
-
-
-@pytest.mark.parametrize("override", [
-    dict(agg_weight="exp"), dict(poly_gram=False), dict(only_frame=0),
-    dict(agg_bf16=True),
-])
-def test_unsupported_config_raises(clip, override):
-    _, noisy = clip
-    kw = dict(BENCH, **override)
-    cfg = vt.default_config(20.0, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        vt.denoise(noisy[:, :, :32, :32], 20.0, cfg=cfg, device="cpu")
 
 
 def test_streaming_mesh_raises(clip):

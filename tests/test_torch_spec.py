@@ -1,7 +1,7 @@
 """Host-side spec of the PyTorch port pinned equal to the JAX package:
 configs, the coverage lattice, the synthetic clips, the polyspec constants
-and sign schedule, the Jacobi rotation schedule and the colour transform.
-Also: the port imports without jax."""
+and sign schedule, the Jacobi rotation schedule, the colour transform and
+the flow IO helpers.  Also: the port imports without jax."""
 
 import dataclasses
 import os
@@ -18,6 +18,7 @@ from vnlb_tpu.ops import eigh as jeigh
 from vnlb_tpu.ops import mask as jmask
 from vnlb_tpu.ops import polyspec as jpoly
 from vnlb_tpu.testing import data as jdata
+from vnlb_tpu.utils import flow_io as jflow_io
 
 import vnlb_tpu_torch.config as tcfg
 from vnlb_tpu_torch.ops import color as tcolor
@@ -25,6 +26,7 @@ from vnlb_tpu_torch.ops import eigh as teigh
 from vnlb_tpu_torch.ops import mask as tmask
 from vnlb_tpu_torch.ops import polyspec as tpoly
 from vnlb_tpu_torch.testing import data as tdata
+from vnlb_tpu_torch.utils import flow_io as tflow_io
 
 torch.set_num_threads(2)
 
@@ -77,6 +79,62 @@ def test_synthetic_clip_and_noise_match():
     np.testing.assert_array_equal(a, jdata.synthetic_video(5, 40, 52, seed=3))
     np.testing.assert_array_equal(tdata.add_noise(a, 20.0, seed=1),
                                   jdata.add_noise(a, 20.0, seed=1))
+
+
+@pytest.mark.parametrize("t,h,w,seed,pan", [(5, 40, 52, 3, 2.0),
+                                            (3, 64, 48, 0, -3.5)])
+def test_synthetic_video_v2_matches(t, h, w, seed, pan):
+    np.testing.assert_array_equal(
+        tdata.synthetic_video_v2(t, h, w, seed=seed, pan=pan),
+        jdata.synthetic_video_v2(t, h, w, seed=seed, pan=pan))
+
+
+def test_agg_h_matches():
+    """agg_h (read by agg_weight="exp") is JAX's, default and override."""
+    assert tcfg.StageConfig.agg_h == jcfg.StageConfig.agg_h
+    for kw in ({}, dict(agg_h=2.5), dict(agg_h=[1.0, 8.0])):
+        got = tcfg.default_config(20.0, agg_weight="exp", **kw)
+        want = jcfg.default_config(20.0, agg_weight="exp", **kw)
+        assert [s.agg_h for s in got.stages] == \
+            [s.agg_h for s in want.stages]
+
+
+def test_flow_io_matches(tmp_path):
+    """The .flo round trip of tests/test_api.py (test_flow_io_roundtrip),
+    files written by one package read by the other, zero_flows and the
+    colour wheel equal to JAX's."""
+    rng = np.random.default_rng(0)
+    flow = rng.normal(0, 3, (2, 12, 16)).astype(np.float32)
+    tflow_io.write_flo(tmp_path / "t.flo", flow)
+    jflow_io.write_flo(tmp_path / "j.flo", flow)
+    assert (tmp_path / "t.flo").read_bytes() == \
+        (tmp_path / "j.flo").read_bytes()
+    back = tflow_io.read_flo(tmp_path / "j.flo")
+    np.testing.assert_allclose(back, flow, atol=1e-6)
+    np.testing.assert_array_equal(back, jflow_io.read_flo(tmp_path / "t.flo"))
+    with pytest.raises(ValueError, match="magic"):
+        (tmp_path / "bad.flo").write_bytes(b"\0" * 16)
+        tflow_io.read_flo(tmp_path / "bad.flo")
+    with pytest.raises(ValueError):
+        tflow_io.write_flo(tmp_path / "x.flo", flow[0])
+
+    f = rng.normal(0, 1, (3, 2, 8, 8)).astype(np.float32)
+    b = rng.normal(0, 1, (3, 2, 8, 8)).astype(np.float32)
+    fe, be = tflow_io.expand_flows(f, b)
+    assert fe.shape[0] == 4 and be.shape[0] == 4
+    np.testing.assert_array_equal(fe[-1], f[-1])
+    np.testing.assert_array_equal(be[0], b[0])
+    for got, want in zip(tflow_io.zero_flows((4, 3, 6, 7)),
+                         jflow_io.zero_flows((4, 3, 6, 7))):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+    np.testing.assert_array_equal(tflow_io._make_colorwheel(),
+                                  jflow_io._make_colorwheel())
+    for mx in (None, 2.0):
+        img = tflow_io.flow_to_image(flow, mx)
+        assert img.shape == (12, 16, 3) and img.dtype == np.uint8
+        np.testing.assert_array_equal(img, jflow_io.flow_to_image(flow, mx))
 
 
 @pytest.mark.parametrize("deg_f", [8, 12, 16, 24, 28, 32])
@@ -137,8 +195,14 @@ def test_port_imports_without_jax():
             "vnlb_tpu_torch.parallel.comm, "
             "vnlb_tpu_torch.parallel.launch, vnlb_tpu_torch.parallel.halo, "
             "vnlb_tpu_torch.parallel.tiled, vnlb_tpu_torch.parallel.tp, "
-            "vnlb_tpu_torch.parallel.pipe, vnlb_tpu_torch.utils.video_io; "
+            "vnlb_tpu_torch.parallel.pipe, vnlb_tpu_torch.utils.video_io, "
+            "vnlb_tpu_torch.compat, vnlb_tpu_torch.ops.flow, "
+            "vnlb_tpu_torch.ops.agg; "
             "assert callable(vnlb_tpu_torch.denoise_streaming); "
+            "assert callable(vnlb_tpu_torch.compat.denoise_compat); "
+            "assert callable(vnlb_tpu_torch.ops.flow.estimate_flows); "
+            "assert callable(vnlb_tpu_torch.utils.flow_io.read_flo); "
+            "assert callable(vnlb_tpu_torch.testing.data.synthetic_video_v2); "
             "assert callable(vnlb_tpu_torch.denoise_mod); "
             "assert callable(vnlb_tpu_torch.proc_nn); "
             "assert 'PIL' not in sys.modules; "

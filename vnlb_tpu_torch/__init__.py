@@ -19,8 +19,13 @@ readers ``proc_nl_cache`` and ``proc_nn``, and ``parallel/`` over
 (``denoise_halo``, ``proc_nl_halo``, ``strip_runner``,
 ``denoise_streaming(mesh=...)``), site parallelism (``denoise_sharded``),
 the filter batch split (``bayes_denoise_tp``) and ``denoise_pipelined``
-over two devices.  Other configurations raise NotImplementedError naming
-their ROADMAP item.
+over two devices; every aggregation mode (``agg_weight="exp"``,
+``only_frame``, ``agg_bf16``) and the econ filter's left regime
+(``poly_gram=False``); optical-flow estimation
+(``vnlb_tpu_torch.ops.flow.estimate_flows``: TV-L1 or Lucas-Kanade) and
+``.flo`` IO (``utils/flow_io.py``); the reference-order pass
+(``vnlb_tpu_torch.compat.denoise_compat``).  ``denoise_pipelined(meshes=)``
+raises NotImplementedError naming its ROADMAP item.
 """
 
 from .api import (denoise, denoise_mod, denoise_streaming, proc_nl_cache,

@@ -3,8 +3,8 @@ package (vnlb_tpu/config.py), copied field for field so the port carries
 no import of jax.  ``config_from_jax`` rebuilds a port config from a
 ``vnlb_tpu`` config object; the tests pin the two equal for every preset.
 
-Field meanings are documented on the JAX original; the notes here only
-mark which values the port runs (see ``check_supported`` in pipeline.py).
+Field meanings are documented on the JAX original; the port runs every
+value the JAX package runs.
 """
 
 from __future__ import annotations

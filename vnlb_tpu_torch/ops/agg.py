@@ -1,5 +1,6 @@
 """Patch aggregation in column space, fold and normalization
-(vnlb_tpu/ops/agg.py:85-211).
+(vnlb_tpu/ops/agg.py:85-211), and the pixel-space aggregation of the
+reference-order pass (``agg_patches``, ``finalize``; compat.py).
 
 Every aggregated patch adds one row to a (T*H'*W', pt*D + 1) accumulator
 at the row of its corner: its pt*C*ps*ps pixels and one weight lane.  The
@@ -17,18 +18,21 @@ parallel reduction on the CPU).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
 
 def agg_rows(acc: torch.Tensor, patches: torch.Tensor, rows: torch.Tensor,
-             valid: torch.Tensor) -> torch.Tensor:
+             valid: torch.Tensor, bf16: bool = False) -> torch.Tensor:
     """Accumulate patch rows into ``acc`` in place and return it.
 
     patches: (B, K, pt, C, ps, ps) filtered patches; rows: (B, K) base rows;
     valid: (B,) or (B, K) bool or float per-patch weights (the weight lane
-    accumulates the weight mass).
+    accumulates the weight mass).  ``bf16`` rounds the update rows (the
+    weighted patch lanes and the weight lane) to bf16 before the scatter,
+    which adds them exactly into the f32 accumulator
+    (vnlb_tpu/pipeline.py:257-261).
     """
     b, k = rows.shape
     ptd = acc.shape[1] - 1
@@ -37,19 +41,19 @@ def agg_rows(acc: torch.Tensor, patches: torch.Tensor, rows: torch.Tensor,
     vm = valid[:, :, None].to(patches.dtype)
     upd = torch.cat([patches.reshape(b, k, ptd) * vm,
                      vm.expand(b, k, 1)], dim=-1)
+    if bf16:
+        upd = upd.to(torch.bfloat16).to(acc.dtype)
     scatter_add_rows(acc, rows.reshape(-1).long(), upd.reshape(-1, ptd + 1))
     return acc
 
 
-def scatter_add_rows(acc: torch.Tensor, rows: torch.Tensor,
-                     upd: torch.Tensor) -> None:
-    """acc[rows[i]] += upd[i] for i in order, deterministically, in place.
-
-    Rank r holds the r-th occurrence of every row; ranks are added in
-    ascending order, so each row receives its updates in original order."""
+def _rank_groups(rows: torch.Tensor) -> List[torch.Tensor]:
+    """The positions of ``rows`` grouped by occurrence rank: group r holds
+    the r-th occurrence of every row (rows unique within it), in ascending
+    position order."""
     n = rows.numel()
     if n == 0:
-        return
+        return []
     srt, perm = torch.sort(rows, stable=True)
     pos = torch.arange(n, device=rows.device)
     new = torch.ones(n, dtype=torch.bool, device=rows.device)
@@ -59,12 +63,57 @@ def scatter_add_rows(acc: torch.Tensor, rows: torch.Tensor,
     rank = pos - start                       # occurrence rank, sorted order
     order = perm[torch.sort(rank, stable=True).indices]
     counts = torch.bincount(rank).tolist()
-    off = 0
-    for cnt in counts:
-        sel = order[off:off + cnt]
+    return list(torch.split(order, counts))
+
+
+def scatter_add_rows(acc: torch.Tensor, rows: torch.Tensor,
+                     upd: torch.Tensor) -> None:
+    """acc[rows[i]] += upd[i] for i in order, deterministically, in place.
+
+    Ranks are added in ascending order, so each row receives its updates
+    in original order."""
+    for sel in _rank_groups(rows):
+        acc[rows[sel]] += upd[sel]
+
+
+def agg_patches(deno: torch.Tensor, weights: torch.Tensor,
+                patches: torch.Tensor, inds: torch.Tensor,
+                valid: torch.Tensor, pt: int, ps: int, shape
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pixel-space aggregation of the reference-order pass
+    (vnlb_tpu/ops/agg.py:24-82), in place; returns (deno, weights).
+
+    deno (T*H*W, C) and weights (T*H*W,) accumulators; patches (B, K, pt,
+    C, ps, ps); inds (B, K) flat indices (-1 invalid); valid (B,) or (B,
+    K) bool.  Every pixel of each patch adds at its clipped corner
+    (frame in [0, T-pt], row in [0, H-ps], column in [0, W-ps]), and one
+    count to the weights; invalid entries add zeros.  Each pixel receives
+    its updates in their original order, as JAX's sequential scatter adds
+    them."""
+    t_len, c, h, w = shape
+    b, k = inds.shape
+    hw = h * w
+    valid = (valid[:, None] if valid.dim() == 1 else valid) & (inds >= 0)
+    safe = torch.clamp(inds.long(), min=0)
+    f = torch.clamp(safe // (c * hw), 0, t_len - pt)
+    y = torch.clamp((safe % hw) // w, 0, h - ps)
+    x = torch.clamp(safe % w, 0, w - ps)
+    dev = inds.device
+    dt = torch.arange(pt, device=dev)[:, None, None]
+    dy = torch.arange(ps, device=dev)[None, :, None]
+    dx = torch.arange(ps, device=dev)[None, None, :]
+    rows = ((f[..., None, None, None] + dt) * hw
+            + (y[..., None, None, None] + dy) * w
+            + (x[..., None, None, None] + dx)).reshape(-1)
+    vmask = valid[..., None, None, None].to(patches.dtype)
+    upd = (patches.permute(0, 1, 2, 4, 5, 3) * vmask[..., None])
+    upd = upd.reshape(-1, c)
+    wupd = vmask.expand(b, k, pt, ps, ps).reshape(-1)
+    for sel in _rank_groups(rows):
         r = rows[sel]
-        acc[r] += upd[sel]
-        off += cnt
+        deno[r] += upd[sel]
+        weights[r] += wupd[sel]
+    return deno, weights
 
 
 def fold(acc: torch.Tensor, pt: int, ps: int, shape
@@ -112,3 +161,16 @@ def finalize_img(deno: torch.Tensor, weights: torch.Tensor,
     wsafe = torch.where(wpos, weights, torch.ones_like(weights))
     out = deno / wsafe[:, None]
     return torch.where(wpos[:, None], out, fallback)
+
+
+def finalize(deno_flat: torch.Tensor, weights_flat: torch.Tensor,
+             fallback: torch.Tensor, shape) -> torch.Tensor:
+    """``agg_patches``' accumulators -> (T, C, H, W): normalized by the
+    weights, the fallback image where no patch landed
+    (vnlb_tpu/ops/agg.py:193-202)."""
+    t_len, c, h, w = shape
+    wpos = weights_flat > 0
+    wsafe = torch.where(wpos, weights_flat, torch.ones_like(weights_flat))
+    out = deno_flat / wsafe[:, None]
+    out = out.reshape(t_len, h, w, c).permute(0, 3, 1, 2)
+    return torch.where(wpos.reshape(t_len, 1, h, w), out, fallback)

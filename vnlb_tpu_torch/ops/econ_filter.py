@@ -13,7 +13,9 @@ state in registers, for groups with q = min(K, p) <= 64 under
 matrix route's groups with 64 < q <= 128 under ``poly_bf16`` whose
 buffers fit (``tcw_smem_bytes``: preset ``default``'s (100, 98)); "smem",
 the shared-memory design on CUDA cores, for every other shape.
-``econ_filter.by_design`` counts the launches of each.
+``econ_filter.by_design`` counts the launches of each.  The kernel has no
+left regime (K < p without ``poly_gram``): ops/bayes.py sends those groups
+to the torch chain, and the kernel's wrapper raises if it is given them.
 """
 
 from __future__ import annotations
@@ -132,6 +134,10 @@ def econ_filter_kernel(xc2: torch.Tensor, xn2: torch.Tensor, cfg,
     """Launch the CUDA kernel on (G, K, p) f32 CUDA tensors;
     ``smem_design`` takes the shared-memory design whatever ``design``
     says (to time both designs on the same inputs)."""
+    if xc2.dim() == 3 and xc2.shape[1] < xc2.shape[2] and not cfg.poly_gram:
+        raise ValueError("the econ filter kernel has no left regime (K < p "
+                         "without poly_gram); ops/bayes.py runs it as torch "
+                         "ops")
     if not (xc2.is_cuda and xn2.is_cuda):
         raise ValueError("econ_filter_kernel needs CUDA tensors")
     if xc2.dtype != torch.float32 or xn2.dtype != torch.float32:

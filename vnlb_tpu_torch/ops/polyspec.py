@@ -13,7 +13,9 @@ tests/test_torch_spec.py).
   same packed or alone.  Cast points: covariance, Gram and ``Xn Xc^T`` in
   f32; every chain product and the final products with bf16-rounded
   operands (``st``) accumulated in f32.  ops/econ_filter.py runs it as
-  kernel K2 on the card.
+  kernel K2 on the card.  Without ``poly_gram``, K < p takes the unpacked
+  left regime (polyspec.py:412-465), which JAX's Pallas filter never
+  takes; the port runs it as these torch ops on every device.
 * ``poly_filter`` (polyspec.py:96-190): the two-factor filter, matrix-sign
   gate x Chebyshev Wiener factor, with polyspec's cast points (not the
   Pallas kernel's).  ops/poly_filter.py runs it as kernel K5 on the card.
@@ -157,15 +159,17 @@ def _transfer_vals(lub: torch.Tensor, ep) -> torch.Tensor:
     return gate * lam_s / (lam_s + s2)
 
 
-def _chain(ah: torch.Tensor, gam: torch.Tensor, m: int, s: int, st):
-    """T_s-substitution + Clenshaw: sum_i T_i(T_s(A)) sum_r gam[i,r] T_r(A)
-    for a batch of (q, q) matrices ``ah``; gam (G, m, s)."""
+def _mm(st):
+    """Batched product of ``st``-rounded operands, accumulated in f32."""
+    return lambda a, b: torch.bmm(st(a), st(b))
+
+
+def _cheb_basis(ah: torch.Tensor, s: int, st):
+    """(B, T) for a batch of (q, q) matrices ``ah``: B = T_s(A) from the
+    even power identities and T = [None, T_1(A), ..., T_{s-1}(A)]."""
     q = ah.shape[-1]
     eye = torch.eye(q, dtype=ah.dtype, device=ah.device)
-
-    def mmm(a, b):
-        return torch.bmm(st(a), st(b))
-
+    mmm = _mm(st)
     a2 = mmm(ah, ah)
     if s == 4:
         a4 = mmm(a2, a2)
@@ -180,6 +184,15 @@ def _chain(ah: torch.Tensor, gam: torch.Tensor, m: int, s: int, st):
         t_mats = [None, ah]
     else:
         raise NotImplementedError(f"ps split s={s}")
+    return b_mat, t_mats
+
+
+def _chain(ah: torch.Tensor, gam: torch.Tensor, m: int, s: int, st):
+    """T_s-substitution + Clenshaw: sum_i T_i(T_s(A)) sum_r gam[i,r] T_r(A)
+    for a batch of (q, q) matrices ``ah``; gam (G, m, s)."""
+    eye = torch.eye(ah.shape[-1], dtype=ah.dtype, device=ah.device)
+    mmm = _mm(st)
+    b_mat, t_mats = _cheb_basis(ah, s, st)
 
     def t_of(r):
         return eye.expand_as(ah) if r == 0 else t_mats[r]
@@ -194,10 +207,41 @@ def _chain(ah: torch.Tensor, gam: torch.Tensor, m: int, s: int, st):
     return v_mats[0] + mmm(b_hi, b_mat) - b_lo
 
 
+def _econ_left(xc2: torch.Tensor, xn2: torch.Tensor, ep) -> torch.Tensor:
+    """The econ filter's left regime (K < p without ``poly_gram``,
+    vnlb_tpu/ops/polyspec.py:412-465): the p x p covariance chain, then
+    z_r = xn2 T_r(A) by the T recurrence and a row-space Clenshaw in
+    B = T_s(A)."""
+    g, k, p = xc2.shape
+    m, s = ep["m"], ep["s"]
+    st = _storer(ep["rnd"])
+    lmm = _mm(st)
+    dev = xc2.device
+    a_cov = torch.bmm(xc2.transpose(1, 2), xc2) / k
+    lub = _lub(a_cov, ep["tau"])
+    fv = _transfer_vals(lub, ep)
+    gam = (fv @ torch.as_tensor(ep["pinv"], device=dev)).reshape(g, m, s)
+    eye = torch.eye(p, dtype=torch.float32, device=dev)
+    ah = 2.0 * a_cov / lub[:, None, None] - eye
+    b_mat, _ = _cheb_basis(ah, s, st)
+    zs = [xn2, lmm(xn2, ah)]
+    for _ in range(2, s):
+        zs.append(2.0 * lmm(zs[-1], ah) - zs[-2])
+    w_rows = [sum(gam[:, i, r, None, None] * zs[r] for r in range(s))
+              for i in range(m)]
+    b_hi = torch.zeros_like(xn2)
+    b_lo = torch.zeros_like(xn2)
+    for i in range(m - 1, 0, -1):
+        b_new = w_rows[i] + 2.0 * lmm(b_hi, b_mat) - b_lo
+        b_lo, b_hi = b_hi, b_new
+    return w_rows[0] + lmm(b_hi, b_mat) - b_lo
+
+
 def poly_filter_econ(xc2: torch.Tensor, xn2: torch.Tensor, cfg
                      ) -> torch.Tensor:
     """Econ spectral filter, (G, K, p) f32 centred patches -> (G, K, p).
-    K >= p takes the matrix route, K < p the Gram route."""
+    K >= p takes the matrix route; K < p the Gram route under
+    ``poly_gram``, else the left regime (``_econ_left``)."""
     g, k, p = xc2.shape
     ep = econ_params(cfg)
     m, s = ep["m"], ep["s"]
@@ -205,6 +249,8 @@ def poly_filter_econ(xc2: torch.Tensor, xn2: torch.Tensor, cfg
     inv_k = torch.tensor(1.0 / k, dtype=torch.float32)
     dev = xc2.device
 
+    if k < p and not cfg.poly_gram:
+        return _econ_left(xc2, xn2, ep)
     if k < p:
         gram = torch.bmm(xc2, xc2.transpose(1, 2)) * inv_k.to(dev)
         lub = _lub(gram, ep["tau"])

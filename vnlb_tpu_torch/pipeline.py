@@ -10,8 +10,10 @@ one call (kernel K3's all-pixel planes are shared by all of them, as JAX's
 the distances of both, unless the first phase searched them), patch gather
 (kernel K4), flat-area flags (second pass), the Bayes filter in any of its
 modes (the econ filter is kernel K2, the two-factor filter kernel K5) or
-the raw patches (``deno="ave"``), ``agg_k`` thinning and the scatter into
-the column-space accumulator.
+the raw patches (``deno="ave"``), ``agg_k`` thinning, the aggregation
+weights (``agg_weights``: ``only_frame``, ``agg_weight="exp"``) and the
+scatter into the column-space accumulator (``agg_bf16`` rounds its update
+rows).
 After the last chunk: fold, normalization with the fallback image, YUV ->
 RGB.  Chunks bound the memory; they are processed in the planned site
 order, so the scatter adds rows in the same order as JAX's one scatter over
@@ -69,26 +71,42 @@ PLAIN = Kernels(patch_dist=patch_dist_plain, econ_filter=econ_filter_plain,
 
 
 def check_supported(cfg: StageConfig) -> None:
-    """Raise NotImplementedError for a config outside the ported slice,
-    naming the ROADMAP item that brings it."""
-    def no(what, item):
-        raise NotImplementedError(
-            f"vnlb_tpu_torch does not run {what} yet (ROADMAP.md, {item})")
-
-    modes = "item 11: the aggregation modes and the econ left regime"
-    p_eff = cfg.pdim * (3 if cfg.couple_channels else 1)   # RGB videos
-    if (cfg.eig_method == "poly" and cfg.poly_impl != "pallas"
-            and cfg.poly_econ and cfg.npatches < p_eff
-            and not cfg.poly_gram):
-        no("poly_gram=False with K < p (the econ left regime)", modes)
-    if cfg.agg_weight != "uniform":
-        no(f"agg_weight={cfg.agg_weight!r}", modes)
-    if cfg.only_frame >= 0:
-        no("only_frame", modes)
-    if cfg.agg_bf16:
-        no("agg_bf16=True", modes)
+    """Raise ValueError for an unknown ``deno`` mode."""
     if cfg.deno not in ("bayes", "ave"):
         raise ValueError(f"unknown deno mode [{cfg.deno}]")
+
+
+def agg_weights(vals: torch.Tensor, inds: torch.Tensor, shape,
+                cfg: StageConfig, ka: int) -> torch.Tensor:
+    """(B, ka) aggregation weights of the best ``ka`` candidates
+    (vnlb_tpu/pipeline.py:227-249): valid candidates (``inds >= 0``);
+    with ``only_frame >= 0`` only those whose decoded corner frame is that
+    frame; with ``agg_weight="exp"`` each weighted by
+    exp(-max(val, 0) * 255^2 / (agg_h * sigma^2))."""
+    t_len, c, h, w = shape
+    valid = inds >= 0
+    if cfg.only_frame >= 0:
+        f = torch.clamp(torch.clamp(inds.long(), min=0) // (c * h * w),
+                        0, t_len - cfg.pt)
+        valid = valid & (f == cfg.only_frame)
+    wts = valid[:, :ka].to(torch.float32)
+    if cfg.agg_weight == "exp":
+        wts = wts * torch.exp(-torch.clamp(vals[:, :ka], min=0.0)
+                              * (255.0 ** 2) / (cfg.agg_h * cfg.sigma2))
+    return wts
+
+
+def rounds_updates(cfg: StageConfig, n_dense: int, s_cnt: int, ka: int,
+                   d: int) -> bool:
+    """Whether ``agg_bf16`` rounds this pass's update rows: JAX rounds them
+    on its one-shot scatter only, which it takes while the stacked updates
+    of its site batches (each part padded to ``bsize`` sites) fit in 3e9
+    bytes (vnlb_tpu/pipeline.py:160-166); past that its in-scan scatter
+    adds f32 rows."""
+    padded = sum(-(-n // cfg.bsize) * cfg.bsize
+                 for n in (n_dense, s_cnt - n_dense))
+    return (cfg.agg_bf16
+            and padded * ka * (cfg.pt * d + 1) * 2 <= int(3e9))
 
 
 def plan_sites(shape, cfg: StageConfig, zero_flow: bool, t_origin: int = 0):
@@ -164,16 +182,17 @@ def accumulate(noisy_yuv: torch.Tensor, basic_yuv: torch.Tensor,
                 tile.h_run - cfg.ps + 1, tile.coarse,
                 dist_fn=kernels.patch_dist, tile_fn=kernels.patch_dist_tile,
                 dense_fn=kernels.dense_dist)
-    dense = None
+    dense = dense_vals = None
     if n_dense and whole_dense:
         # before the accumulator exists: the search's planes and candidate
         # buffer are the pass's largest temporaries
-        _, dense = dense_search(0, n_dense)
+        dense_vals, dense = dense_search(0, n_dense)
     acc = torch.zeros((t_len * hp * wp, cfg.pt * d + 1), dtype=torch.float32,
                       device=dev)
     ka = (cfg.agg_k if cfg.agg_k and cfg.agg_k < cfg.npatches
           else cfg.npatches)
     s_cnt = sites.shape[0]
+    bf16_rows = rounds_updates(cfg, n_dense, s_cnt, ka, d)
     bounds = ([(s0, min(s0 + SITE_CHUNK, n_dense))
                for s0 in range(0, n_dense, SITE_CHUNK)]
               + [(s0, min(s0 + SITE_CHUNK, s_cnt))
@@ -182,7 +201,7 @@ def accumulate(noisy_yuv: torch.Tensor, basic_yuv: torch.Tensor,
     for s0, s1 in bounds:
         chunk = sites[s0:s1]
         if s0 < n_dense and dense is not None:
-            inds = dense[s0:s1]
+            vals, inds = dense_vals[s0:s1], dense[s0:s1]
         elif s0 < n_dense:
             vals, inds = dense_search(s0, s1)
         else:
@@ -213,8 +232,8 @@ def accumulate(noisy_yuv: torch.Tensor, basic_yuv: torch.Tensor,
         # thin the scatter to the best agg_k candidates (vals ascend); the
         # Bayes prior above used all K
         rows = gather.inds_to_rows(inds[:, :ka], shape, cfg.ps, cfg.pt)
-        wts = (inds[:, :ka] >= 0).to(torch.float32)
-        agg.agg_rows(acc, pfilt[:, :ka], rows[:, :, 0], wts)
+        wts = agg_weights(vals, inds, shape, cfg, ka)
+        agg.agg_rows(acc, pfilt[:, :ka], rows[:, :, 0], wts, bf16=bf16_rows)
     return agg.fold(acc, cfg.pt, cfg.ps, shape)
 
 

@@ -74,18 +74,19 @@ def flows():
               flush=True)
     for name, t_fn, j_fn in (("tvl1", tf.tvl1_flow, jf.tvl1_flow),
                              ("lk", tf.lk_flow, jf.lk_flow)):
-        print(f"[{name}] clean 72x72", _d(t_fn(vid[0], vid[1]),
-                                          j_fn(vid[0], vid[1])), flush=True)
+        print(f"[{name}] clean 72x72",
+              _d(t_fn(vid[0], vid[1], device="cpu"), j_fn(vid[0], vid[1])),
+              flush=True)
         noisy = add_noise(synthetic_video(5, 72, 72, seed=11, motion=4.0),
                           20.0, seed=12)
         for i in range(4):
             print(f"[{name}] noisy 72x72 pair {i}",
-                  _d(t_fn(noisy[i], noisy[i + 1]),
+                  _d(t_fn(noisy[i], noisy[i + 1], device="cpu"),
                      j_fn(noisy[i], noisy[i + 1])), flush=True)
         big = add_noise(synthetic_video(2, 480, 854, seed=0, motion=4.0),
                         20.0, seed=1)
-        print(f"[{name}] noisy 480x854", _d(t_fn(big[0], big[1]),
-                                            j_fn(big[0], big[1])),
+        print(f"[{name}] noisy 480x854",
+              _d(t_fn(big[0], big[1], device="cpu"), j_fn(big[0], big[1])),
               flush=True)
 
 

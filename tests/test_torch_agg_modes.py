@@ -19,10 +19,10 @@ from vnlb_tpu.ops.polyspec import poly_filter_econ as j_econ
 
 import vnlb_tpu_torch as vt
 from vnlb_tpu_torch.config import config_from_jax
-from vnlb_tpu_torch.ops import bayes
-from vnlb_tpu_torch.ops.econ_filter import econ_filter_kernel
+from vnlb_tpu_torch.ops import agg, bayes
+from vnlb_tpu_torch.ops import econ_filter as econ_filter_mod
 from vnlb_tpu_torch.ops.polyspec import poly_filter_econ
-from vnlb_tpu_torch.pipeline import agg_weights, rounds_updates
+from vnlb_tpu_torch.pipeline import agg_weights
 from vnlb_tpu_torch.testing.data import add_noise, synthetic_video
 from vnlb_tpu_torch.utils.metrics import compute_psnr
 
@@ -125,15 +125,25 @@ def test_agg_weights():
     assert got[0, 0] == 1.0 and got[0, 3] == 0.0
 
 
-def test_bf16_rounding_follows_jax_scatter_size():
-    """agg_bf16 rounds only while JAX's stacked updates (its site batches
-    padded to bsize) fit 3e9 bytes: the 480p API default's first pass
-    rounds, its second does not."""
-    cfg = vt.default_config(20.0, agg_bf16=True)
-    s0, s1 = cfg.stage(0), cfg.stage(1)
-    assert rounds_updates(s0, 213_000, 226_064, 32, 147)
-    assert not rounds_updates(s1, 170_000, 180_908, 32, 147)
-    assert not rounds_updates(s0.replace(agg_bf16=False), 10, 20, 32, 147)
+def test_agg_rows_bf16_rounds_the_update_rows():
+    """agg_bf16 rounds the weighted patch lanes and the weight lane to
+    bf16, then adds them exactly into the f32 accumulator."""
+    rng = np.random.default_rng(4)
+    patches = torch.from_numpy(rng.uniform(0, 255, (3, 4, 2, 3, 2, 2))
+                               .astype(np.float32))
+    wts = torch.from_numpy(rng.uniform(0.1, 1.0, (3, 4)).astype(np.float32))
+    rows = torch.tensor([[0, 1, 1, 5], [2, 0, 7, 1], [3, 3, 3, 6]])
+    acc0 = torch.from_numpy(rng.uniform(0, 9, (8, 25)).astype(np.float32))
+    got = agg.agg_rows(acc0.clone(), patches, rows, wts, bf16=True)
+    upd = torch.cat([patches.reshape(3, 4, 24) * wts[..., None],
+                     wts[..., None]], dim=-1).reshape(12, 25)
+    upd = upd.to(torch.bfloat16).to(torch.float32)
+    want = acc0.clone()
+    for i, r in enumerate(rows.reshape(-1).tolist()):
+        want[r] += upd[i]
+    assert torch.equal(got, want)
+    assert not torch.equal(got, agg.agg_rows(acc0.clone(), patches, rows,
+                                             wts))
 
 
 @pytest.mark.parametrize("stage,k,p", [(1, 60, 98), (0, 40, 49)])
@@ -157,23 +167,35 @@ def test_left_regime_filter_matches_jax(stage, k, p, bf16):
         assert np.abs(got - want).max() / scale < 1e-3
 
 
-def test_left_regime_never_reaches_k2():
-    """bayes_denoise sends left-regime groups to the torch chain, not to
-    the econ function (K2 on the card), and K2's wrapper refuses them."""
+def test_left_regime_never_reaches_k2(monkeypatch):
+    """The econ wrapper sends left-regime groups to the torch chain on
+    every device (meta tensors stand in for the card's here), other
+    shapes to the kernel, and K2's own wrapper refuses them."""
     cfg = vt.default_config(20.0, poly_gram=False).stage(1)
+
+    def refuse(*_):
+        raise AssertionError("the kernel was called")
+
+    monkeypatch.setattr(econ_filter_mod, "econ_filter_kernel", refuse)
+    assert econ_filter_mod.left_regime(60, 98, cfg)
+    gram = cfg.replace(poly_gram=True)
+    assert not econ_filter_mod.left_regime(60, 98, gram)
+    assert not econ_filter_mod.left_regime(100, 49, cfg)
+    xm = torch.empty((4, 60, 98), device="meta")
+    assert econ_filter_mod.econ_filter(xm, xm, cfg).shape == (4, 60, 98)
+    # the Gram route leaves the plain version for any device but the CPU
+    with pytest.raises(ValueError, match="unsupported device"):
+        econ_filter_mod.econ_filter(xm, xm, gram)
+    monkeypatch.undo()
+    xc = torch.zeros((4, 60, 98))
+    with pytest.raises(ValueError, match="left regime"):
+        econ_filter_mod.econ_filter_kernel(xc, xc, cfg)
+    # bayes_denoise's left-regime output is the torch chain's
     rng = np.random.default_rng(3)
     pn = torch.from_numpy(rng.uniform(0, 255, (2, 60, 3, 98))
                           .astype(np.float32))
     flags = torch.zeros(2, dtype=torch.bool)
-
-    def refuse(*_):
-        raise AssertionError("the econ function was called")
-
-    bayes.bayes_denoise(pn, pn, flags, cfg, econ_fn=refuse)
-    xc = torch.zeros((4, 60, 98))
-    with pytest.raises(ValueError, match="left regime"):
-        econ_filter_kernel(xc, xc, cfg)
-    # the Gram route still takes the econ function
-    with pytest.raises(AssertionError, match="econ function"):
-        bayes.bayes_denoise(pn, pn, flags, cfg.replace(poly_gram=True),
-                            econ_fn=refuse)
+    got, _ = bayes.bayes_denoise(pn, pn, flags, cfg)
+    want, _ = bayes.bayes_denoise(pn, pn, flags, cfg,
+                                  econ_fn=poly_filter_econ)
+    assert torch.equal(got, want)

@@ -16,6 +16,8 @@ benefit of estimated flows over zero flow (the port's version of
 tests/test_flow_benefit.py at its 72-px, motion-4 case), and a denoise
 with the port's flows against one with JAX's."""
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -132,7 +134,7 @@ def test_full_estimator_matches(pair, method):
     f0, f1 = pair
     fn = {"tvl1": (tf.tvl1_flow, jf.tvl1_flow),
           "lk": (tf.lk_flow, jf.lk_flow)}[method]
-    got = fn[0](f0, f1)
+    got = fn[0](f0, f1, device="cpu")
     want = np.asarray(fn[1](f0, f1))
     assert got.shape == (2, 72, 72) and got.dtype == torch.float32
     if method == "lk":
@@ -199,3 +201,11 @@ def test_denoise_with_port_flows_matches_jax_flows(drift_clip, port_flows):
     for a, b in ((b_port, b_jax), (d_port, d_jax)):
         assert abs(compute_psnr(a.numpy(), clean)
                    - compute_psnr(b.numpy(), clean)) < 0.02
+
+
+@pytest.mark.parametrize("name", ["estimate_flows", "tvl1_flow", "lk_flow"])
+def test_entry_points_default_to_the_card(name):
+    """Every flow entry point runs on the card unless the caller asks for
+    the CPU."""
+    fn = getattr(tf, name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"

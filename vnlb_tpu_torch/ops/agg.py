@@ -18,7 +18,7 @@ parallel reduction on the CPU).
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Tuple
 
 import torch
 
@@ -47,13 +47,15 @@ def agg_rows(acc: torch.Tensor, patches: torch.Tensor, rows: torch.Tensor,
     return acc
 
 
-def _rank_groups(rows: torch.Tensor) -> List[torch.Tensor]:
-    """The positions of ``rows`` grouped by occurrence rank: group r holds
-    the r-th occurrence of every row (rows unique within it), in ascending
-    position order."""
+def scatter_add_rows(acc: torch.Tensor, rows: torch.Tensor,
+                     upd: torch.Tensor) -> None:
+    """acc[rows[i]] += upd[i] for i in order, deterministically, in place.
+
+    Rank r holds the r-th occurrence of every row; ranks are added in
+    ascending order, so each row receives its updates in original order."""
     n = rows.numel()
     if n == 0:
-        return []
+        return
     srt, perm = torch.sort(rows, stable=True)
     pos = torch.arange(n, device=rows.device)
     new = torch.ones(n, dtype=torch.bool, device=rows.device)
@@ -63,17 +65,12 @@ def _rank_groups(rows: torch.Tensor) -> List[torch.Tensor]:
     rank = pos - start                       # occurrence rank, sorted order
     order = perm[torch.sort(rank, stable=True).indices]
     counts = torch.bincount(rank).tolist()
-    return list(torch.split(order, counts))
-
-
-def scatter_add_rows(acc: torch.Tensor, rows: torch.Tensor,
-                     upd: torch.Tensor) -> None:
-    """acc[rows[i]] += upd[i] for i in order, deterministically, in place.
-
-    Ranks are added in ascending order, so each row receives its updates
-    in original order."""
-    for sel in _rank_groups(rows):
-        acc[rows[sel]] += upd[sel]
+    off = 0
+    for cnt in counts:
+        sel = order[off:off + cnt]
+        r = rows[sel]
+        acc[r] += upd[sel]
+        off += cnt
 
 
 def agg_patches(deno: torch.Tensor, weights: torch.Tensor,
@@ -106,13 +103,13 @@ def agg_patches(deno: torch.Tensor, weights: torch.Tensor,
             + (y[..., None, None, None] + dy) * w
             + (x[..., None, None, None] + dx)).reshape(-1)
     vmask = valid[..., None, None, None].to(patches.dtype)
-    upd = (patches.permute(0, 1, 2, 4, 5, 3) * vmask[..., None])
-    upd = upd.reshape(-1, c)
-    wupd = vmask.expand(b, k, pt, ps, ps).reshape(-1)
-    for sel in _rank_groups(rows):
-        r = rows[sel]
-        deno[r] += upd[sel]
-        weights[r] += wupd[sel]
+    upd = torch.cat([patches.permute(0, 1, 2, 4, 5, 3)
+                     * vmask[..., None],
+                     vmask.expand(b, k, pt, ps, ps)[..., None]], dim=-1)
+    acc = torch.cat([deno, weights[:, None]], dim=1)
+    scatter_add_rows(acc, rows, upd.reshape(-1, c + 1))
+    deno.copy_(acc[:, :c])
+    weights.copy_(acc[:, c])
     return deno, weights
 
 
@@ -169,8 +166,6 @@ def finalize(deno_flat: torch.Tensor, weights_flat: torch.Tensor,
     weights, the fallback image where no patch landed
     (vnlb_tpu/ops/agg.py:193-202)."""
     t_len, c, h, w = shape
-    wpos = weights_flat > 0
-    wsafe = torch.where(wpos, weights_flat, torch.ones_like(weights_flat))
-    out = deno_flat / wsafe[:, None]
-    out = out.reshape(t_len, h, w, c).permute(0, 3, 1, 2)
-    return torch.where(wpos.reshape(t_len, 1, h, w), out, fallback)
+    fb = fallback.permute(0, 2, 3, 1).reshape(-1, c)
+    out = finalize_img(deno_flat, weights_flat, fb)
+    return out.reshape(t_len, h, w, c).permute(0, 3, 1, 2)

@@ -8,8 +8,8 @@ which are centred on the basic mean; the covariance source is the noisy
 (first pass) or basic (second pass) group.  The spectral filter:
 
 * ``eig_method="poly"``: the econ filter (kernel K2, ops/econ_filter.py)
-  for ``poly_impl="fused"`` and ``poly_econ``, but its left regime (K < p
-  without ``poly_gram``) as torch ops (ops/polyspec.py); the two-factor
+  for ``poly_impl="fused"`` and ``poly_econ`` (its left regime, K < p
+  without ``poly_gram``, as torch ops on every device); the two-factor
   filter (kernel K5, ops/poly_filter.py) for ``poly_impl="pallas"`` and,
   without ``poly_econ``, for K >= p or without ``poly_fused``; else the
   fused single series (ops/polyspec.poly_filter_fused);
@@ -29,7 +29,7 @@ from ..config import StageConfig
 from .econ_filter import econ_filter
 from .eigh import jacobi_eigh
 from .poly_filter import poly_filter
-from .polyspec import poly_filter_econ, poly_filter_fused
+from .polyspec import poly_filter_fused
 from .spectral import rational_filter
 
 
@@ -50,10 +50,6 @@ def _poly(xc2, xn2, k, cfg, econ_fn, poly_fn):
         return econ_fn(xc2, xn2, cfg)
     if cfg.poly_impl == "pallas":
         return poly_fn(xc2, xn2, cfg)
-    if cfg.poly_econ and k_f < p_f and not cfg.poly_gram:
-        # the left regime: torch ops on every device, as JAX's fused
-        # (Pallas) filter never takes it either
-        return poly_filter_econ(xc2, xn2, cfg)
     if cfg.poly_econ:
         return econ_fn(xc2, xn2, cfg)
     if cfg.poly_fused and k < p_f:

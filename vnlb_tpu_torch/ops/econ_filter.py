@@ -14,8 +14,10 @@ matrix route's groups with 64 < q <= 128 under ``poly_bf16`` whose
 buffers fit (``tcw_smem_bytes``: preset ``default``'s (100, 98)); "smem",
 the shared-memory design on CUDA cores, for every other shape.
 ``econ_filter.by_design`` counts the launches of each.  The kernel has no
-left regime (K < p without ``poly_gram``): ops/bayes.py sends those groups
-to the torch chain, and the kernel's wrapper raises if it is given them.
+left regime (K < p without ``poly_gram``, ``left_regime``), which JAX's
+Pallas filter never takes either: ``econ_filter`` sends those groups to
+the torch chain on every device, and ``econ_filter_kernel`` raises if it
+is given them.
 """
 
 from __future__ import annotations
@@ -46,6 +48,12 @@ TC_Q, TC_LDK, TC_LDB, TC_BUFS, TC_SMEM_MAX = 64, 68, 72, 4, 104 * 1024
 TCW_Q, TCW_LDK, TCW_LDB, TCW_SMEM_MAX = 128, 132, 136, 220 * 1024
 # blocks each design keeps on one SM (the card's plan must say the same)
 BLOCKS_PER_SM = {"tc": 2, "tcw": 1}
+
+
+def left_regime(k: int, p: int, cfg) -> bool:
+    """Groups of K < p without ``poly_gram``: the p x p chain, which no
+    design of the kernel runs."""
+    return k < p and not cfg.poly_gram
 
 
 def _round_up(x: int, m: int) -> int:
@@ -134,9 +142,9 @@ def econ_filter_kernel(xc2: torch.Tensor, xn2: torch.Tensor, cfg,
     """Launch the CUDA kernel on (G, K, p) f32 CUDA tensors;
     ``smem_design`` takes the shared-memory design whatever ``design``
     says (to time both designs on the same inputs)."""
-    if xc2.dim() == 3 and xc2.shape[1] < xc2.shape[2] and not cfg.poly_gram:
+    if xc2.dim() == 3 and left_regime(xc2.shape[1], xc2.shape[2], cfg):
         raise ValueError("the econ filter kernel has no left regime (K < p "
-                         "without poly_gram); ops/bayes.py runs it as torch "
+                         "without poly_gram); econ_filter runs it as torch "
                          "ops")
     if not (xc2.is_cuda and xn2.is_cuda):
         raise ValueError("econ_filter_kernel needs CUDA tensors")
@@ -188,8 +196,10 @@ def econ_filter_kernel(xc2: torch.Tensor, xn2: torch.Tensor, cfg,
 
 def econ_filter(xc2: torch.Tensor, xn2: torch.Tensor, cfg) -> torch.Tensor:
     """Econ spectral filter of (G, K, p) centred patch groups: the plain
-    version for CPU tensors, the CUDA kernel for CUDA tensors."""
-    if xc2.device.type == "cpu":
+    version for CPU tensors and for the left regime, the CUDA kernel for
+    other CUDA tensors."""
+    if xc2.device.type == "cpu" or left_regime(xc2.shape[1], xc2.shape[2],
+                                                cfg):
         return econ_filter_plain(xc2, xn2, cfg)
     if xc2.device.type == "cuda":
         return econ_filter_kernel(xc2, xn2, cfg)

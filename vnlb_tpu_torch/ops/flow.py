@@ -2,8 +2,8 @@
 duality-based TV-L1 (``tvl1_flow``, the algorithm of the reference's
 external flow package) and dense iterative Lucas-Kanade (``lk_flow``), so
 that ``denoise(noisy, sigma, flows=estimate_flows(noisy))`` runs on the
-card alone.  Every step is a torch op on the frames' device; no kernel of
-its own.
+card alone.  Every step is a torch op on ``device`` (the card unless the
+caller asks for the CPU); no kernel of its own.
 
 Kept as JAX computes them:
 
@@ -118,11 +118,10 @@ def _coarse_to_fine(pyr, level_fn):
 
 
 def lk_flow(frame0, frame1, levels: int = 3, radius: int = 4,
-            iters: int = 3, device=None) -> torch.Tensor:
-    """Flow from frame0 to frame1; (c, h, w) frames -> (2, h, w) (u, v),
-    on ``device`` (default: frame0's device if it is a tensor, else the
-    CPU)."""
-    device = _device_of(frame0, device)
+            iters: int = 3, device="cuda") -> torch.Tensor:
+    """Flow from frame0 to frame1; (c, h, w) frames (numpy or torch) ->
+    (2, h, w) (u, v) on ``device``."""
+    device = torch.device(device)
     g0 = _gray(frame0, device) / 255.0
     g1 = _gray(frame1, device) / 255.0
     pyr = [(g0, g1)]
@@ -193,12 +192,12 @@ def _tvl1_level(i0, i1, u1, u2, lam: float, theta: float, tau: float,
 
 def tvl1_flow(frame0, frame1, levels: int = 5, lam: float = 0.15,
               theta: float = 0.3, tau: float = 0.25, warps: int = 5,
-              iters: int = 25, device=None) -> torch.Tensor:
-    """TV-L1 flow frame0 -> frame1; (c, h, w) frames -> (2, h, w) (u, v),
-    on ``device`` (default: frame0's device if it is a tensor, else the
-    CPU).  The published defaults (lam 0.15 on the [0, 255] scale, theta
-    0.3, tau 0.25, 5 warps); ``iters`` fixes the inner primal-dual count."""
-    device = _device_of(frame0, device)
+              iters: int = 25, device="cuda") -> torch.Tensor:
+    """TV-L1 flow frame0 -> frame1; (c, h, w) frames (numpy or torch) ->
+    (2, h, w) (u, v) on ``device``.  The published defaults (lam 0.15 on
+    the [0, 255] scale, theta 0.3, tau 0.25, 5 warps); ``iters`` fixes the
+    inner primal-dual count."""
+    device = torch.device(device)
     g0 = _blur121(_gray(frame0, device))
     g1 = _blur121(_gray(frame1, device))
     pyr = [(g0, g1)]
@@ -210,12 +209,6 @@ def tvl1_flow(frame0, frame1, levels: int = 5, lam: float = 0.15,
     return _coarse_to_fine(
         pyr, lambda a, b, u, v: _tvl1_level(a, b, u, v, lam, theta, tau,
                                             warps, iters))
-
-
-def _device_of(x, device) -> torch.device:
-    if device is not None:
-        return torch.device(device)
-    return x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
 
 
 def estimate_flows(video, levels: int = 3, radius: int = 4, iters: int = 3,
@@ -233,10 +226,10 @@ def estimate_flows(video, levels: int = 3, radius: int = 4, iters: int = 3,
         video = torch.as_tensor(video, dtype=torch.float32, device=device)
     t = video.shape[0]
     if method == "tvl1":
-        f = tvl1_flow
+        f = functools.partial(tvl1_flow, device=device)
     elif method == "lk":
         f = functools.partial(lk_flow, levels=levels, radius=radius,
-                              iters=iters)
+                              iters=iters, device=device)
     else:
         raise ValueError(f"unknown flow method [{method}]")
     if t < 2:

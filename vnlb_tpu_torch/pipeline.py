@@ -96,19 +96,6 @@ def agg_weights(vals: torch.Tensor, inds: torch.Tensor, shape,
     return wts
 
 
-def rounds_updates(cfg: StageConfig, n_dense: int, s_cnt: int, ka: int,
-                   d: int) -> bool:
-    """Whether ``agg_bf16`` rounds this pass's update rows: JAX rounds them
-    on its one-shot scatter only, which it takes while the stacked updates
-    of its site batches (each part padded to ``bsize`` sites) fit in 3e9
-    bytes (vnlb_tpu/pipeline.py:160-166); past that its in-scan scatter
-    adds f32 rows."""
-    padded = sum(-(-n // cfg.bsize) * cfg.bsize
-                 for n in (n_dense, s_cnt - n_dense))
-    return (cfg.agg_bf16
-            and padded * ka * (cfg.pt * d + 1) * 2 <= int(3e9))
-
-
 def plan_sites(shape, cfg: StageConfig, zero_flow: bool, t_origin: int = 0):
     """Sites of the pass in search order (vnlb_tpu/pipeline.py:341-368):
     (sites (S, 3) int32, n_dense).  The first ``n_dense`` sites take the
@@ -192,7 +179,6 @@ def accumulate(noisy_yuv: torch.Tensor, basic_yuv: torch.Tensor,
     ka = (cfg.agg_k if cfg.agg_k and cfg.agg_k < cfg.npatches
           else cfg.npatches)
     s_cnt = sites.shape[0]
-    bf16_rows = rounds_updates(cfg, n_dense, s_cnt, ka, d)
     bounds = ([(s0, min(s0 + SITE_CHUNK, n_dense))
                for s0 in range(0, n_dense, SITE_CHUNK)]
               + [(s0, min(s0 + SITE_CHUNK, s_cnt))
@@ -233,7 +219,8 @@ def accumulate(noisy_yuv: torch.Tensor, basic_yuv: torch.Tensor,
         # Bayes prior above used all K
         rows = gather.inds_to_rows(inds[:, :ka], shape, cfg.ps, cfg.pt)
         wts = agg_weights(vals, inds, shape, cfg, ka)
-        agg.agg_rows(acc, pfilt[:, :ka], rows[:, :, 0], wts, bf16=bf16_rows)
+        agg.agg_rows(acc, pfilt[:, :ka], rows[:, :, 0], wts,
+                     bf16=cfg.agg_bf16)
     return agg.fold(acc, cfg.pt, cfg.ps, shape)
 
 

@@ -19,13 +19,18 @@ the clip's own drift flow, the API default with ``poly_impl="pallas"``
 98) groups), the API default with
 the all-rows dense search (``dense_rows="full"``: kernel K3) and the exact
 and the streaming top-K; then ``denoise_streaming`` of a 24x480x854 clip
-against the whole-clip ``denoise``.  Then the halo-sharded pass
+against the whole-clip ``denoise``, and ``denoise_pipelined`` with both
+passes on this card (``devices=``) bitwise against it.  Then the
+halo-sharded pass
 (``vnlb_tpu_torch.parallel``): K1's tile entry against its plain version
 on the strips of a 4-strip split, the one-card strip runner over all four
 strips of both passes against the mask-border ``proc_nl``, and a 2-rank
 gloo world on the one card (``denoise_halo`` bitwise against the 2-strip
 composition, ``proc_nl_halo`` with the drift flow, ``denoise_sharded``,
-``denoise_streaming(mesh=...)`` of a 12x480x854 clip).  Then the paths of
+``denoise_streaming(mesh=...)`` of a 12x480x854 clip), and
+``denoise_pipelined(meshes=...)`` over two stage groups of a 4-rank gloo
+world on the card (2 stages x 2 strips) bitwise against that 2-rank
+``denoise_streaming(mesh=...)``.  Then the paths of
 estimated flow, the reference-order pass and the aggregation modes:
 ``estimate_flows`` (TV-L1 and LK) of a 5x480x854 clip that moves 4 px a
 frame, on the card against the CPU, ``denoise`` with those flows (every
@@ -34,8 +39,10 @@ of the clip's first 3 frames (its plain-version pass takes over a minute
 at 5) with the kernels, the plain versions and a repeat (K1, K2, K4), and
 one ``denoise`` per aggregation mode (``agg_weight="exp"`` under both
 ``dense_rows``, ``only_frame``, ``agg_bf16``, ``poly_gram=False``, whose
-second pass runs no K2) against its plain-version pass.  K2's and K5's
-lines name the design each group shape takes (tensor cores at width 64 or
+second pass runs no K2) against its plain-version pass; last, the port's
+CLI (``scripts/torch_example.py --dataset davis``, a subprocess) on the
+main clip, its PSNRs and launches equal to the API default's.  K2's and
+K5's lines name the design each group shape takes (tensor cores at width 64 or
 128, or shared memory), a tensor-core design's plan against its Python
 mirror and its stated blocks per SM, and the old design's time on the
 same inputs; each group shape's repeat run is bitwise equal; and
@@ -51,6 +58,7 @@ it, the script fails and prints no result.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -706,6 +714,10 @@ WORLD_EXPECT = {
     "streaming_mesh": {"patch_dist_tile", "patch_dist", "econ_filter",
                        "patch_gather"},
 }
+# the pipelined world's stages run streaming_mesh's two passes apart: stage
+# 2 (stype "l2") builds no coarse level, so it launches no K1 dense entry
+PIPE_EXPECT = {1: WORLD_EXPECT["streaming_mesh"],
+               2: WORLD_EXPECT["streaming_mesh"] - {"patch_dist"}}
 
 
 def halo_world_phase(vt, noisy, clean, dev, drift, mono):
@@ -814,6 +826,106 @@ def halo_world_phase(vt, noisy, clean, dev, drift, mono):
         streaming_one_card_s=f"{one_s:.3f}",
         streaming_deno_max_mean=f"{st_err[0][0]:.4g}/{st_err[0][1]:.4g}",
         reference_s=f"{time.perf_counter() - t1:.2f}")
+    return out["streaming_mesh"], one_s
+
+
+def pipe_world_phase(vt, dev, mesh_stream, one_s):
+    """denoise_pipelined(meshes=...) in a 4-rank gloo world on the one card
+    (2 stages x 2 strips, ``pipelined_world``) on halo_world's 12-frame
+    clip: bitwise equal to the 2-rank denoise_streaming(mesh=...) of
+    ``mesh_stream`` ((deno, basic, seconds), in-world wall), at the same
+    torch threads; each rank's launches against its stage's PIPE_EXPECT.
+    Logs the walls, each stage's busy seconds and the stage edge's bytes
+    and seconds."""
+    from vnlb_tpu_torch.parallel.launch import run_world, sequence
+    from vnlb_tpu_torch.parallel.pipe import pipelined_world
+    from vnlb_tpu_torch.testing.data import add_noise, synthetic_video
+
+    s_noisy = add_noise(synthetic_video(HALO_STREAM_T, H, W, seed=0), SIGMA,
+                        seed=1)
+    s_cfg = vt.default_config(SIGMA, **HALO_STREAM_CFG)
+    t0 = time.perf_counter()
+    ranks = run_world(sequence, 4, args=(
+        [(pipelined_world, (s_noisy, SIGMA),
+          dict(sizes=(2, 2), chunk=STREAM_CHUNK, cfg=s_cfg))],),
+        device=str(dev), threads=torch.get_num_threads())
+    world_s = time.perf_counter() - t0
+    (sdeno, sbasic, _), stream_wall = mesh_stream[0], mesh_stream[1]
+    stats, walls = [], []
+    for rank, ((deno, basic, secs, st), wall, ln) in enumerate(
+            r[0] for r in ranks):
+        if not (np.array_equal(deno, sdeno) and np.array_equal(basic, sbasic)):
+            raise AssertionError(f"pipe_world rank {rank}: not bitwise equal "
+                                 f"to the 2-rank streaming_mesh output")
+        log("pipe_world_launches", rank=rank, stage=st["stage"], **ln)
+        if any((n > 0) != (k in PIPE_EXPECT[st["stage"]])
+               for k, n in ln.items()):
+            raise AssertionError(f"pipe_world rank {rank}: launches {ln}, "
+                                 f"expected "
+                                 f"{sorted(PIPE_EXPECT[st['stage']])}")
+        stats.append(st)
+        walls.append(wall)
+    if [st["stage"] for st in stats] != [1, 1, 2, 2]:
+        raise AssertionError(f"pipe_world: stages {stats}")
+    log("pipe_world", ranks=4, stages="2x2", backend="gloo", device=str(dev),
+        frames=HALO_STREAM_T, chunk=STREAM_CHUNK,
+        bitwise_equal_streaming_mesh=True,
+        world_seconds=f"{world_s:.2f}", pipelined_s=f"{secs:.3f}",
+        in_world_s=",".join(f"{w:.3f}" for w in walls),
+        streaming_mesh_2rank_s=f"{stream_wall:.3f}",
+        streaming_one_card_s=f"{one_s:.3f}",
+        busy_s=",".join(f"{st['busy_s']:.3f}" for st in stats),
+        edge_bytes_sent=sum(st["edge_bytes"] for st in stats[:2]),
+        edge_send_s=",".join(f"{st['edge_s']:.4f}" for st in stats[:2]),
+        edge_wait_s=",".join(f"{st['edge_s']:.4f}" for st in stats[2:]))
+
+
+def cli_phase(launches_api, psnr_api):
+    """``scripts/torch_example.py --dataset davis`` as a subprocess on the
+    card (the main clip: synthetic seed 0, noise seed 1, no data root): its
+    printed PSNRs equal the API-default e2e run's (``psnr_api`` = (basic,
+    deno)) to the printed decimals, and its kernel launches, read in the
+    subprocess after the script ends, equal that run's
+    (``launches_api``)."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(root, "scripts", "torch_example.py")
+    code = ("import json, runpy, sys; "
+            f"sys.argv = [{script!r}, '--dataset', 'davis']; "
+            f"runpy.run_path({script!r}, run_name='__main__'); "
+            "from vnlb_tpu_torch.pipeline import KERNELS; "
+            "print(json.dumps({k.__name__: k.launches for k in KERNELS}))")
+    env = dict(os.environ, VNLB_TPU_DATA=os.path.join(root, "build",
+                                                      "no_data"))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"cli: exit {res.returncode}\n"
+                             f"{res.stderr[-3000:]}")
+    out = res.stdout.strip().splitlines()
+    launches = json.loads(out[-1])
+    printed = {m.group(1): m.group(2) for m in (
+        re.match(r"psnr\s+(\w+): ([\d.]+) dB", line) for line in out) if m}
+    ssim = re.search(r"ssim\s+deno: ([\d.]+) \(([\d.]+)s\)",
+                     res.stdout)
+    want = {"basic": f"{psnr_api[0]:.3f}", "deno": f"{psnr_api[1]:.3f}"}
+    if {k: printed.get(k) for k in want} != want:
+        raise AssertionError(f"cli: printed PSNRs {printed}, the API "
+                             f"default's {want}")
+    for k, n in launches.items():
+        if n != launches_api.get(k, 0):
+            raise AssertionError(f"cli: launches {launches}, the API "
+                                 f"default's {launches_api}")
+    denoise_s = re.search(r"time: ([\d.]+)s", res.stdout).group(1)
+    log("cli", command="scripts/torch_example.py --dataset davis",
+        wall_s=f"{wall:.2f}", denoise_s=denoise_s,
+        psnr_noisy=printed["noisy"], psnr_basic=printed["basic"],
+        psnr_deno=printed["deno"], api_default=f"{want['basic']}/"
+        f"{want['deno']}", ssim=ssim.group(1), ssim_s=ssim.group(2),
+        ssim_share=f"{float(ssim.group(2)) / wall:.3f}", **launches)
 
 
 # the estimated-flow, reference-order and aggregation-mode phases: a
@@ -1489,6 +1601,9 @@ def main():
         out = e2e(vt, name, noisy, clean, dev, counters, want, cfg=rcfg,
                   flows=fl)
         launches[name], k1_runs[name] = out[0], out[3]
+        if name == "e2e_api_zero":
+            api_psnr = (compute_psnr(out[2].cpu().numpy(), clean),
+                        compute_psnr(out[1].cpu().numpy(), clean))
         del out
     # the redesigned filter kernels ran on the paths that take them: K5's
     # tensor-core design under poly_impl="pallas", K2's wide design on
@@ -1533,9 +1648,11 @@ def main():
     dm, bm = dm.cpu().numpy(), bm.cpu().numpy()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    dense_dist.launches = 0
+    for c in counters:
+        c.launches = 0
     ds, bs, str_s = vt.denoise_streaming(s_noisy, SIGMA, chunk=STREAM_CHUNK,
                                          cfg=s_cfg, device=dev)
+    str_launches = {c.__name__: c.launches for c in counters}
     str_peak = torch.cuda.max_memory_allocated(dev)
     mad_b, mad_d = np.abs(bs - bm).mean(), np.abs(ds - dm).mean()
     dpsnr = abs(compute_psnr(ds, s_clean) - compute_psnr(dm, s_clean))
@@ -1554,6 +1671,27 @@ def main():
         raise AssertionError("streaming: differs from the whole-clip run or "
                              "needs more memory")
 
+    # ---- 8d. denoise_pipelined(devices=) of the same clip, both passes on
+    # this card: bitwise the streaming run, with its launches ----
+    from vnlb_tpu_torch.parallel.pipe import denoise_pipelined
+    for c in counters:
+        c.launches = 0
+    pd, pb, pipe_s = denoise_pipelined(s_noisy, SIGMA, chunk=STREAM_CHUNK,
+                                       cfg=s_cfg, devices=(dev, dev))
+    launches["pipe_devices"] = {c.__name__: c.launches for c in counters}
+    if not (np.array_equal(pd, ds) and np.array_equal(pb, bs)):
+        raise AssertionError("pipe_devices: not bitwise equal to "
+                             "denoise_streaming")
+    if launches["pipe_devices"] != str_launches:
+        raise AssertionError(f"pipe_devices: launches "
+                             f"{launches['pipe_devices']}, streaming "
+                             f"{str_launches}")
+    log("pipe_devices", frames=STREAM_T, chunk=STREAM_CHUNK,
+        devices=f"{dev},{dev}", seconds=f"{pipe_s:.3f}",
+        streaming_seconds=f"{str_s:.3f}", bitwise_equal_streaming=True,
+        **launches["pipe_devices"])
+    del pd, pb
+
     # ---- 9. the halo-sharded pass: K1's tile entry, the one-card strip
     # runner over 4 strips, a 2-rank gloo world on this card ----
     k1t_err, (k1t_ms, k1t_pms, (k1t_bms, k1t_by)) = k1_tile_phase(yuv, shape,
@@ -1571,7 +1709,10 @@ def main():
     launches["halo_strips"] = halo_strips_phase(vt, noisy, clean, dev,
                                                 counters6, mono)
     torch.cuda.empty_cache()
-    halo_world_phase(vt, noisy, clean, dev, drift, mono)
+    mesh_stream, one_s = halo_world_phase(vt, noisy, clean, dev, drift,
+                                          mono)
+    torch.cuda.empty_cache()
+    pipe_world_phase(vt, dev, mesh_stream, one_s)
 
     # ---- 10. estimated flow (TV-L1 and LK) on a clip that moves 4 px a
     # frame, and denoise with it; the reference-order pass; the
@@ -1587,6 +1728,10 @@ def main():
     launches["e2e_compat"] = compat_phase(vt, noisy[:COMPAT_FRAMES],
                                           clean[:COMPAT_FRAMES], dev)
     launches.update(agg_modes_phase(vt, noisy, clean, dev, counters))
+
+    # ---- 10b. the port's CLI on the main clip ----
+    torch.cuda.empty_cache()
+    cli_phase(launches["e2e_api_zero"], api_psnr)
 
     # ---- 11. records ----
     kms, pms, (k2_bms, k2_by) = k2_times["gram(s1)", 3 * 4096]

@@ -211,9 +211,3 @@ def test_pipelined_matches_jax(pipe_clip):
         devices=(devs[0], devs[1]))
     _near_jax(basic, np.asarray(jbasic), clean)
     _near_jax(deno, np.asarray(jdeno), clean)
-
-
-def test_pipelined_meshes_not_ported():
-    noisy = np.zeros((4, 3, 32, 32), np.float32)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        denoise_pipelined(noisy, 20.0, meshes=(None, None))

@@ -197,7 +197,17 @@ def test_port_imports_without_jax():
             "vnlb_tpu_torch.parallel.tiled, vnlb_tpu_torch.parallel.tp, "
             "vnlb_tpu_torch.parallel.pipe, vnlb_tpu_torch.utils.video_io, "
             "vnlb_tpu_torch.compat, vnlb_tpu_torch.ops.flow, "
-            "vnlb_tpu_torch.ops.agg; "
+            "vnlb_tpu_torch.ops.agg, vnlb_tpu_torch.utils, "
+            "vnlb_tpu_torch.utils.index, vnlb_tpu_torch.utils.timer, "
+            "vnlb_tpu_torch.utils.logger, vnlb_tpu_torch.utils.flops, "
+            "vnlb_tpu_torch.viz, vnlb_tpu_torch.viz.explore_gp; "
+            "from vnlb_tpu_torch.parallel.pipe import stage_meshes, "
+            "pipelined_world; "
+            "from vnlb_tpu_torch.utils import compute_ssim, coords2idx, "
+            "Timer, trace, sync, Logger, vprint; "
+            "assert callable(vnlb_tpu_torch.testing.data.load_golden); "
+            "assert callable(vnlb_tpu_torch.viz.plot_patch_group); "
+            "assert 'matplotlib' not in sys.modules; "
             "assert callable(vnlb_tpu_torch.denoise_streaming); "
             "assert callable(vnlb_tpu_torch.compat.denoise_compat); "
             "assert callable(vnlb_tpu_torch.ops.flow.estimate_flows); "

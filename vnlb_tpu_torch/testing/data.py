@@ -1,9 +1,34 @@
-"""Synthetic clips (numpy copies of vnlb_tpu/testing/data.py), so a run on
-a machine without jax can build the same inputs from the same seeds."""
+"""Datasets and synthetic clips (numpy copies of vnlb_tpu/testing/data.py),
+so a run on a machine without jax can build the same inputs from the same
+seeds.
+
+There is no download: ``load_dataset`` reads a local dataset root
+(VNLB_TPU_DATA, else ``~/.cache/vnlb_tpu/data``) in the reference's layout
+(frame sequences + sigma.txt) and otherwise generates the registered
+synthetic stand-in; ``load_golden`` reads reference outputs when they are
+on disk.
+"""
 
 from __future__ import annotations
 
+import os
+from pathlib import Path
+
 import numpy as np
+
+DATASETS = {
+    # name: (t, h, w) of the synthetic stand-in clip
+    "davis_64x64": (5, 64, 64),
+    "davis": (5, 480, 854),
+    "gmobile": (5, 480, 854),
+    "set8": (5, 480, 854),
+    "cup_crop": (5, 256, 256),
+}
+
+
+def data_root() -> Path:
+    return Path(os.environ.get("VNLB_TPU_DATA",
+                               Path.home() / ".cache/vnlb_tpu/data"))
 
 
 def synthetic_video(t: int, h: int, w: int, seed: int = 0,
@@ -104,3 +129,98 @@ def synthetic_video_v2(t: int, h: int, w: int, seed: int = 0,
 def add_noise(clean: np.ndarray, sigma: float, seed: int = 123) -> np.ndarray:
     rng = np.random.default_rng(seed)
     return (clean + rng.normal(0.0, sigma, clean.shape)).astype(np.float32)
+
+
+def load_dataset(name: str, sigma: float = 20.0, seed: int = 0):
+    """Returns dict(clean, noisy, std, fflow, bflow).
+
+    Uses on-disk frames when available under ``data_root()/name``; otherwise
+    generates the synthetic stand-in of the registered size.
+    """
+    root = data_root() / name
+    if root.exists():
+        from ..utils.video_io import read_video_sequence
+
+        clean = read_video_sequence(root)
+        std_file = root / "sigma.txt"
+        std = float(std_file.read_text()) if std_file.exists() else sigma
+    else:
+        if name not in DATASETS:
+            raise KeyError(f"unknown dataset [{name}]; "
+                           f"registered: {sorted(DATASETS)}")
+        t, h, w = DATASETS[name]
+        clean = synthetic_video(t, h, w, seed=seed)
+        std = sigma
+
+    noisy = add_noise(clean, std, seed=seed + 1)
+    t = clean.shape[0]
+    fflow = np.zeros((t, 2) + clean.shape[2:], np.float32)
+    bflow = np.zeros_like(fflow)
+    return dict(clean=clean, noisy=noisy, std=std, fflow=fflow, bflow=bflow)
+
+
+def _read_frame_seq(root: Path, pattern: str):
+    """Read ``pattern % i`` frames (RGB, through ``utils.video_io``) until
+    the first missing index; (T, 3, H, W) float32 or None."""
+    from ..utils.video_io import _imread
+
+    frames = []
+    for i in range(10000):
+        p = root / (pattern % i)
+        if not p.exists():
+            break
+        frames.append(_imread(p))
+    return np.stack(frames) if frames else None
+
+
+def load_golden(name: str):
+    """Load reference outputs under ``data_root()/name`` when present;
+    None when absent.  Two layouts:
+
+    * the ``.npy`` cache (``deno.npy`` / ``basic.npy`` / ``noisy.npy``);
+    * the reference's tif layout: noisy ``%03d.tif``, basic
+      ``bsic_%03d.tif``, denoised ``deno_%03d.tif``;
+
+    and in both the TV-L1 flows ``tvl1_%03d_{f,b}.flo`` as (T, 2, H, W)
+    stacks (vnlb_tpu's ``load_golden`` transposes ``read_flo``'s (2, H, W)
+    once more, to (W, 2, H) a frame) and ``sigma.txt``.
+    """
+    root = data_root() / name
+    out = {}
+    if (root / "deno.npy").exists():
+        out["deno"] = np.load(root / "deno.npy")
+        for k in ("basic", "noisy"):
+            f = root / f"{k}.npy"
+            if f.exists():
+                out[k] = np.load(f)
+    else:
+        deno = _read_frame_seq(root, "deno_%03d.tif") if root.exists() \
+            else None
+        if deno is None:
+            return None
+        out["deno"] = deno
+        basic = _read_frame_seq(root, "bsic_%03d.tif")
+        if basic is not None:
+            out["basic"] = basic
+        noisy = _read_frame_seq(root, "%03d.tif")
+        if noisy is not None:
+            out["noisy"] = noisy
+    std_file = root / "sigma.txt"
+    if std_file.exists():
+        out["sigma"] = float(std_file.read_text())
+    if (root / "tvl1_000_f.flo").exists():
+        from ..utils.flow_io import read_flo
+
+        ff, bf = [], []
+        for i in range(out["deno"].shape[0]):
+            fp = root / f"tvl1_{i:03d}_f.flo"
+            bp = root / f"tvl1_{i:03d}_b.flo"
+            if fp.exists():
+                ff.append(read_flo(fp))
+            if bp.exists():
+                bf.append(read_flo(bp))
+        if ff:
+            out["fflow"] = np.stack(ff)
+        if bf:
+            out["bflow"] = np.stack(bf)
+    return out

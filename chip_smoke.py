@@ -39,9 +39,17 @@ of the clip's first 3 frames (its plain-version pass takes over a minute
 at 5) with the kernels, the plain versions and a repeat (K1, K2, K4), and
 one ``denoise`` per aggregation mode (``agg_weight="exp"`` under both
 ``dense_rows``, ``only_frame``, ``agg_bf16``, ``poly_gram=False``, whose
-second pass runs no K2) against its plain-version pass; last, the port's
+second pass runs no K2) against its plain-version pass; the port's
 CLI (``scripts/torch_example.py --dataset davis``, a subprocess) on the
-main clip, its PSNRs and launches equal to the API default's.  K2's and
+main clip, its PSNRs and launches equal to the API default's; last, the
+card against the C++ oracle (``vnlb_tpu_torch/testing/oracle.py``, built
+with g++; its passes run in threads beside the card's checks) and the
+NumPy oracle (``testing/npref.py``): colour and lattice, the gather search
+on K1's window-start entry and the dense search on K1's dense entry and on
+K3 (indices differ only at ties), K4 bitwise, scatter, fold and finalize,
+one pass with the kernels and both passes of a 3x48x48 clip (the
+oracle's semantics within 2e-3 mean relative error and 0.01 dB; K2's
+poly run within 0.1 dB of the jacobi run).  K2's and
 K5's lines name the design each group shape takes (tensor cores at width 64 or
 128, or shared memory), a tensor-core design's plan against its Python
 mirror and its stated blocks per SM, and the old design's time on the
@@ -1165,6 +1173,376 @@ def agg_modes_phase(vt, noisy, clean, dev, counters):
     return launches
 
 
+# the oracle phase: the card's kernels and passes against the C++ oracle
+# (vnlb_tpu_torch/oracle/vnlb_oracle.cpp, sequential f64) and the NumPy
+# oracle (testing/npref.py).  (b)-(e) on a 5x96x112 clip; (f) the one-pass
+# clip and config of tests/test_oracle.py::test_end_to_end_parity; (g)
+# scripts/compare_oracle.py's size and config (l2 in both passes), once
+# with the oracle's own semantics (all K aggregated, f32 columns)
+ORACLE_CLIP = (5, 96, 112)
+ORACLE_SITES, ORACLE_AGG_SITES = 256, 4096
+ORACLE_E2E = dict(stype="l2", agg_k=0, cols_bf16=False, eig_method="jacobi")
+ORACLE_G = dict(preset="iphone", stype=["l2", "l2"], eig_method="jacobi")
+ORACLE_EXACT = dict(agg_k=0, cols_bf16=False)
+
+
+def oracle_topk(name, vals, inds, o_vals, o_inds, tol=1e-5):
+    """tests/test_oracle.py::assert_topk_match's rule: indices differ only
+    where the distances agree within ``tol``; the values agree to rtol
+    1e-4, atol 1e-5.  Returns (index agreement, max |dv| over finite
+    values)."""
+    vals, inds = vals.cpu().numpy(), inds.cpu().numpy()
+    neq = np.where(inds != o_inds)
+    if neq[0].size and not np.abs(vals[neq] - o_vals[neq]).max() < tol:
+        raise AssertionError(f"oracle {name}: indices differ beyond ties")
+    np.testing.assert_allclose(vals, o_vals, rtol=1e-4, atol=1e-5,
+                               err_msg=f"oracle {name}")
+    fin = np.isfinite(o_vals)
+    return 1.0 - neq[0].size / inds.size, float(np.abs(vals - o_vals)[fin]
+                                                 .max())
+
+
+def rel_mean(got, want):
+    """Mean relative error: mean |got - want| / mean |want|."""
+    got, want = np.asarray(got), np.asarray(want)
+    return float(np.abs(got - want).mean() / (np.abs(want).mean() + 1e-10))
+
+
+def launches_of(counters, name, want):
+    """The launches of each counter since they were set to 0; raises
+    unless the kernels in ``want`` launched."""
+    got = {c.__name__: c.launches for c in counters}
+    if not all(got[k] > 0 for k in want):
+        raise AssertionError(f"oracle {name}: launches {got}, expected "
+                             f"{sorted(want)} > 0")
+    return got
+
+
+def oracle_phase(vt, dev):
+    """The card against both oracles: (a) colour and lattice, (b) the gather
+    search on K1's window-start entry, (c) the dense search on K1's dense
+    entry and on K3, (d) K4 bitwise, (e) scatter, fold and finalize against
+    npref, (f) one pass and (g) both passes against the oracle's, with K2
+    (poly) held to the jacobi run.  The oracle's passes of (f) and (g) run
+    in threads beside the card's checks (ctypes releases the GIL).  One
+    line per check with its seconds, then the phase's."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from vnlb_tpu_torch.ops import agg, color
+    from vnlb_tpu_torch.ops.dense_dist import dense_dist
+    from vnlb_tpu_torch.ops.econ_filter import econ_filter
+    from vnlb_tpu_torch.ops.gather import inds_to_rows
+    from vnlb_tpu_torch.ops.mask import lattice_mask
+    from vnlb_tpu_torch.ops.patch_dist import patch_dist
+    from vnlb_tpu_torch.ops.patch_gather import patch_gather
+    from vnlb_tpu_torch.ops.search import exec_search
+    from vnlb_tpu_torch.ops.search_dense import exec_search_dense
+    from vnlb_tpu_torch.testing import npref
+    from vnlb_tpu_torch.testing import oracle as orc
+    from vnlb_tpu_torch.testing.data import add_noise, synthetic_video
+    from vnlb_tpu_torch.utils.metrics import compute_psnr
+
+    counters = (patch_dist, dense_dist, patch_gather, econ_filter)
+
+    def zero():
+        for c in counters:
+            c.launches = 0
+
+    def timed(fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        return out, time.perf_counter() - t0
+
+    t_phase = time.perf_counter()
+    path = orc.library_path()
+    compiled = not path.exists()
+    _, build_s = timed(orc.lib)
+    log("oracle_build", seconds=f"{build_s:.2f}", library=path.name,
+        compiled=compiled)
+
+    f_clean = synthetic_video(3, 32, 32, seed=5)
+    f_noisy = add_noise(f_clean, SIGMA, seed=6)
+    zf32 = np.zeros((3, 2, 32, 32), np.float32)
+    f_cfg = vt.default_config(SIGMA, preset="iphone").stage(0).replace(
+        **ORACLE_E2E)
+    g_clean = synthetic_video(3, 48, 48, seed=0)
+    g_noisy = add_noise(g_clean, SIGMA, seed=1)
+    g_cfg = vt.default_config(SIGMA, **ORACLE_G)
+    pool = ThreadPoolExecutor(max_workers=2)
+    try:
+        g_job = pool.submit(timed, orc.oracle_denoise, g_noisy, SIGMA, g_cfg)
+        f_job = pool.submit(timed, orc.oracle_proc_nl, f_noisy, None, zf32,
+                            zf32, f_cfg)
+        oracle_s = 0.0
+
+        # ---- (a) colour and lattice ----
+        t0 = time.perf_counter()
+        t_len, h, w = ORACLE_CLIP
+        v = np.random.default_rng(0).uniform(
+            0, 255, (t_len, 3, h, w)).astype(np.float32)
+        v_t = torch.from_numpy(v).to(dev)
+        err = [np.abs(fn(v_t).cpu().numpy() - ofn(v)).max() for fn, ofn in
+               ((color.rgb2yuv, orc.oracle_rgb2yuv),
+                (color.yuv2rgb, orc.oracle_yuv2rgb))]
+        if not max(err) <= 1e-3:
+            raise AssertionError(f"oracle colour: max |d| {err}")
+        n_lat = 0
+        for shape in ((3, 3, 32, 32), (4, 3, 41, 37), (t_len, 3, h, w),
+                      (T, 3, H, W)):
+            for kw in (dict(preset="iphone"), dict(preset="iphone",
+                                                   step_s=6)):
+                for stage in vt.default_config(SIGMA, **kw).stages:
+                    if not np.array_equal(lattice_mask(shape, stage),
+                                          orc.oracle_lattice(shape, stage)):
+                        raise AssertionError(f"oracle lattice {shape}")
+                    n_lat += 1
+        log("oracle_color_lattice", rgb2yuv_max=f"{err[0]:.3g}",
+            yuv2rgb_max=f"{err[1]:.3g}", atol=1e-3, lattices_equal=n_lat,
+            seconds=f"{time.perf_counter() - t0:.2f}")
+
+        # ---- (b) the gather search on K1's window-start entry ----
+        clean = synthetic_video(t_len, h, w, seed=0)
+        yuv_np = color.rgb2yuv(torch.from_numpy(add_noise(
+            clean, SIGMA, seed=1))).numpy()
+        yuv2_np = color.rgb2yuv(torch.from_numpy(clean)).numpy()
+        yuv = torch.from_numpy(yuv_np).to(dev)
+        rng = np.random.default_rng(1)
+        cases = []
+        # tests/test_oracle.py::test_search_parity_l2 and _needle's inputs
+        r = np.random.default_rng(1)
+        vid = r.uniform(0, 255, (4, 3, 40, 44)).astype(np.float32)
+        ffl = r.uniform(-2, 2, (4, 2, 40, 44)).astype(np.float32)
+        bfl = r.uniform(-2, 2, (4, 2, 40, 44)).astype(np.float32)
+        cases.append(("l2_test", vid, ffl, bfl, np.array(
+            [[1, 4, 6], [2, 20, 30], [0, 0, 0], [2, 33, 37]], np.int32),
+            vt.default_config(SIGMA).stage(1).replace(nwt_b=2, nwt_f=2,
+                                                      npatches=12)))
+        r = np.random.default_rng(2)
+        vid = r.uniform(0, 255, (3, 3, 64, 64)).astype(np.float32)
+        z64 = np.zeros((3, 2, 64, 64), np.float32)
+        cases.append(("needle_test", vid, z64, z64, np.array(
+            [[1, 10, 12], [0, 40, 40]], np.int32),
+            vt.default_config(SIGMA).stage(0).replace(
+                nwt_b=1, nwt_f=1, npatches=10, stype="needle")))
+        s1 = vt.default_config(SIGMA).stage(1)
+        ffl = rng.uniform(-2, 2, (t_len, 2, h, w)).astype(np.float32)
+        bfl = rng.uniform(-2, 2, (t_len, 2, h, w)).astype(np.float32)
+        sites = np.stack([rng.integers(0, t_len - s1.pt + 1, ORACLE_SITES),
+                          rng.integers(0, h - s1.ps + 1, ORACLE_SITES),
+                          rng.integers(0, w - s1.ps + 1, ORACLE_SITES)],
+                         1).astype(np.int32)
+        cases.append(("flow_s1", yuv_np, ffl, bfl, sites, s1))
+        found = {}
+        for name, vid, ffl, bfl, sites, cfg in cases:
+            t0 = time.perf_counter()
+            zero()
+            vals, inds = exec_search(*(torch.from_numpy(a).to(dev) for a in
+                                       (vid, sites, ffl, bfl)), cfg)
+            n = launches_of(counters, f"search {name}", {"patch_dist"})
+            card_s = time.perf_counter() - t0
+            (o_vals, o_inds), o_s = timed(orc.oracle_search, vid, sites, ffl,
+                                          bfl, cfg)
+            oracle_s += o_s
+            agree, dv = oracle_topk(f"search {name}", vals, inds, o_vals,
+                                    o_inds)
+            found[name] = (vid, inds, cfg)
+            log("oracle_search", case=name, entry="K1 window starts",
+                stype=cfg.stype, sites=len(sites), k=cfg.npatches,
+                index_agreement=f"{agree:.6f}", max_abs_dv=f"{dv:.3g}",
+                k1_launches=n["patch_dist"], seconds=f"{card_s:.2f}",
+                oracle_seconds=f"{o_s:.2f}")
+
+        # ---- (c) the dense search at zero flow on K1's dense entry and on
+        # K3, interior sites; no bf16 rounding of the distances (the
+        # oracle's f64 sums: search_bf16=False) ----
+        half = (s1.w_s - 1) // 2
+        isites = np.stack([
+            rng.integers(0, t_len - s1.pt + 1, ORACLE_SITES),
+            rng.integers(half, h - s1.ps - half + 1, ORACLE_SITES),
+            rng.integers(half, w - s1.ps - half + 1, ORACLE_SITES)],
+            1).astype(np.int32)
+        z = np.zeros((t_len, 2, h, w), np.float32)
+        d_cfg = s1.replace(search_bf16=False, cols_bf16=False)
+        (o_vals, o_inds), o_s = timed(orc.oracle_search, yuv_np, isites, z, z,
+                                      d_cfg)
+        oracle_s += o_s
+        for rows, kern in (("auto", "patch_dist"), ("full", "dense_dist")):
+            t0 = time.perf_counter()
+            zero()
+            vals, inds = exec_search_dense(
+                yuv, torch.from_numpy(isites).to(dev),
+                d_cfg.replace(dense_rows=rows))
+            n = launches_of(counters, f"dense {rows}", {kern})
+            card_s = time.perf_counter() - t0
+            agree, dv = oracle_topk(f"dense {rows}", vals, inds, o_vals,
+                                    o_inds)
+            log("oracle_dense", dense_rows=rows,
+                entry="K1 dense" if rows == "auto" else "K3",
+                sites=len(isites), search_bf16=False,
+                index_agreement=f"{agree:.6f}", max_abs_dv=f"{dv:.3g}",
+                launches=n[kern], seconds=f"{card_s:.2f}",
+                oracle_seconds=f"{o_s:.2f}")
+
+        # ---- (d) K4 at (b)'s indices, bitwise ----
+        for name, (vid, inds, cfg) in found.items():
+            t0 = time.perf_counter()
+            # the large case reads two videos, as the second pass does
+            vids = [vid] + ([yuv2_np] if name == "flow_s1" else [])
+            zero()
+            outs = patch_gather([torch.from_numpy(x).to(dev) for x in vids],
+                                inds, cfg.ps, cfg.pt, False)
+            n = launches_of(counters, f"gather {name}", {"patch_gather"})
+            card_s = time.perf_counter() - t0
+            i_np = inds.cpu().numpy()
+            for x, out in zip(vids, outs):
+                want, o_s = timed(orc.oracle_fill_patches, x, i_np, cfg.pt,
+                                  cfg.ps)
+                oracle_s += o_s
+                b, k = i_np.shape
+                want = want.transpose(0, 1, 3, 2, 4, 5).reshape(b, k, 3, -1)
+                if not np.array_equal(out.cpu().numpy(), want):
+                    raise AssertionError(f"oracle gather {name}: K4 is not "
+                                         f"bitwise the oracle's")
+            log("oracle_gather", case=name, videos=len(vids),
+                groups=f"{i_np.shape[0]}x{i_np.shape[1]}",
+                patch=f"{cfg.pt}x3x{cfg.ps}x{cfg.ps}", bitwise=True,
+                k4_launches=n["patch_gather"], seconds=f"{card_s:.2f}")
+
+        # ---- (e) scatter, fold and finalize against npref,
+        # tests/test_npref.py's inputs at 4096 sites ----
+        t0 = time.perf_counter()
+        shape = (t_len, 3, h, w)
+        cfg = vt.default_config(SIGMA, preset="default").stage(0)
+        ps, pt, b, k = cfg.ps, cfg.pt, ORACLE_AGG_SITES, 10
+        r = np.random.default_rng(3)
+        inds = (r.integers(0, t_len - pt + 1, (b, k)) * 3 * h * w
+                + r.integers(0, h - ps + 1, (b, k)) * w
+                + r.integers(0, w - ps + 1, (b, k))).astype(np.int32)
+        inds[0, :3] = -1
+        patches = r.normal(0, 1, (b, k, pt, 3, ps, ps)).astype(np.float32)
+        want_d = np.zeros(shape)
+        want_w = np.zeros((t_len, h, w))
+        npref.agg_patches(want_d, want_w, patches.astype(np.float64), inds,
+                          ps, pt)
+        ref_s = time.perf_counter() - t0
+        p_t = torch.from_numpy(patches).to(dev)
+        i_t = torch.from_numpy(inds).to(dev)
+        valid = torch.ones((b, k), dtype=torch.bool, device=dev)
+        d1, w1 = agg.agg_patches(torch.zeros((t_len * h * w, 3), device=dev),
+                                 torch.zeros(t_len * h * w, device=dev), p_t,
+                                 i_t, valid, pt, ps, shape)
+        d1 = d1.cpu().numpy().reshape(t_len, h, w, 3).transpose(0, 3, 1, 2)
+        w1 = w1.cpu().numpy().reshape(t_len, h, w)
+        hp, wp = h - ps + 1, w - ps + 1
+        acc = torch.zeros((t_len * hp * wp, pt * 3 * ps * ps + 1),
+                          device=dev)
+        acc = agg.agg_rows(acc, p_t, inds_to_rows(i_t, shape, ps, pt)[:, :, 0],
+                           valid & (i_t >= 0))
+        d2, w2 = (x.cpu().numpy() for x in agg.fold(acc, pt, ps, shape))
+        errs = dict(pixel=(np.abs(d1 - want_d).max(),
+                           np.abs(w1 - want_w).max()),
+                    rows_fold=(np.abs(d2 - want_d).max(),
+                               np.abs(w2 - want_w).max()))
+        for key, (de, we) in errs.items():
+            if not (de <= 1e-4 and we <= 1e-5):
+                raise AssertionError(f"oracle agg {key}: max |d| {de}, "
+                                     f"weights {we}")
+        fd = r.normal(0, 1, shape).astype(np.float32)
+        fw = r.integers(0, 3, (t_len, h, w)).astype(np.float32)
+        fb = r.normal(0, 1, shape).astype(np.float32)
+        got = agg.finalize_img(*(torch.from_numpy(x).to(dev)
+                                 for x in (fd, fw, fb))).cpu().numpy()
+        fin_err = np.abs(got - npref.finalize(fd.astype(np.float64),
+                                              fw.astype(np.float64),
+                                              fb.astype(np.float64))).max()
+        if not fin_err <= 1e-5:
+            raise AssertionError(f"oracle finalize: max |d| {fin_err}")
+        log("oracle_agg", sites=b, k=k, patch=f"{pt}x3x{ps}x{ps}",
+            shape="x".join(map(str, shape)),
+            pixel_max=f"{errs['pixel'][0]:.3g}",
+            pixel_weights_max=f"{errs['pixel'][1]:.3g}",
+            rows_fold_max=f"{errs['rows_fold'][0]:.3g}",
+            rows_fold_weights_max=f"{errs['rows_fold'][1]:.3g}",
+            finalize_max=f"{fin_err:.3g}", atol="1e-4/1e-5/1e-5",
+            seconds=f"{time.perf_counter() - t0:.2f}",
+            npref_seconds=f"{ref_s:.2f}")
+
+        # ---- (f) one pass with the kernels ----
+        t0 = time.perf_counter()
+        zt = torch.from_numpy(zf32).to(dev)
+        zero()
+        got = vt.proc_nl(torch.from_numpy(f_noisy).to(dev), None, None, zt,
+                         zt, f_cfg).cpu().numpy()
+        n = launches_of(counters, "one pass", {"patch_dist", "patch_gather"})
+        card_s = time.perf_counter() - t0
+        want, o_s = f_job.result()
+        oracle_s += o_s
+        rel, mx = rel_mean(got, want), float(np.abs(got - want).max())
+        log("oracle_pass", clip="3x32x32", config="iphone s0, l2, agg_k=0, "
+            "f32 columns, jacobi", mean_rel_err=f"{rel:.3g}",
+            max_abs_err=f"{mx:.3g}", k1_launches=n["patch_dist"],
+            k4_launches=n["patch_gather"], seconds=f"{card_s:.2f}",
+            oracle_seconds=f"{o_s:.2f}")
+        if not (rel < 2e-3 and mx < 10.0):
+            raise AssertionError(f"oracle pass: mean relative {rel}, max "
+                                 f"{mx}")
+
+        # ---- (g) both passes at 3x48x48 ----
+        runs = {}
+        for name, kw, kerns in (
+                ("jacobi", ORACLE_EXACT, {"patch_dist", "patch_gather"}),
+                ("poly", dict(ORACLE_EXACT, eig_method="poly"),
+                 {"patch_dist", "patch_gather", "econ_filter"}),
+                ("preset", {}, {"patch_dist", "patch_gather"})):
+            t0 = time.perf_counter()
+            zero()
+            d, b_, _ = vt.denoise(g_noisy, SIGMA, cfg=vt.default_config(
+                SIGMA, **dict(ORACLE_G, **kw)), device=dev)
+            n = launches_of(counters, f"denoise {name}", kerns)
+            runs[name] = (b_.cpu().numpy(), d.cpu().numpy(), n,
+                          time.perf_counter() - t0)
+        t_wait = time.perf_counter()
+        (o_deno, o_basic), g_s = g_job.result()
+        wait_s = time.perf_counter() - t_wait
+        oracle_s += g_s
+        o_psnr = (compute_psnr(o_basic, g_clean), compute_psnr(o_deno,
+                                                               g_clean))
+        psnr = {}
+        for name, (b_, d, n, card_s) in runs.items():
+            psnr[name] = (compute_psnr(b_, g_clean), compute_psnr(d, g_clean))
+            rel = (rel_mean(b_, o_basic), rel_mean(d, o_deno))
+            gate = {"jacobi": "rel<2e-3,|dpsnr|<=0.01 vs oracle",
+                    "poly": "|dpsnr|<=0.1 vs jacobi"}.get(name, "none")
+            log("oracle_denoise", run=name, clip="3x48x48",
+                psnr_basic=f"{psnr[name][0]:.5f}",
+                psnr_deno=f"{psnr[name][1]:.5f}",
+                oracle_basic=f"{o_psnr[0]:.5f}",
+                oracle_deno=f"{o_psnr[1]:.5f}",
+                dpsnr_basic=f"{psnr[name][0] - o_psnr[0]:+.5f}",
+                dpsnr_deno=f"{psnr[name][1] - o_psnr[1]:+.5f}",
+                mean_rel_basic=f"{rel[0]:.3g}", mean_rel_deno=f"{rel[1]:.3g}",
+                gate=gate, k1_launches=n["patch_dist"],
+                k4_launches=n["patch_gather"],
+                k2_launches=n["econ_filter"], seconds=f"{card_s:.2f}")
+            if name == "jacobi" and not (
+                    max(rel) < 2e-3 and all(abs(p - o) <= 0.01 for p, o in
+                                            zip(psnr[name], o_psnr))):
+                raise AssertionError(f"oracle denoise jacobi: relative "
+                                     f"{rel}, PSNR {psnr[name]} against "
+                                     f"{o_psnr}")
+        dpoly = [p - j for p, j in zip(psnr["poly"], psnr["jacobi"])]
+        if not all(abs(x) <= 0.1 for x in dpoly):
+            raise AssertionError(f"oracle denoise poly: {dpoly} dB from the "
+                                 f"jacobi run")
+    finally:
+        pool.shutdown(wait=True)
+    total = time.perf_counter() - t_phase
+    log("oracle", seconds=f"{total:.2f}", oracle_seconds=f"{oracle_s:.2f}",
+        oracle_denoise_seconds=f"{g_s:.2f}", waited_for_oracle_s=
+        f"{wait_s:.2f}", poly_minus_jacobi_basic=f"{dpoly[0]:+.5f}",
+        poly_minus_jacobi_deno=f"{dpoly[1]:+.5f}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -1732,6 +2110,10 @@ def main():
     # ---- 10b. the port's CLI on the main clip ----
     torch.cuda.empty_cache()
     cli_phase(launches["e2e_api_zero"], api_psnr)
+
+    # ---- 10c. the card against the C++ oracle and npref ----
+    torch.cuda.empty_cache()
+    oracle_phase(vt, dev)
 
     # ---- 11. records ----
     kms, pms, (k2_bms, k2_by) = k2_times["gram(s1)", 3 * 4096]

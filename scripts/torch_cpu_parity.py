@@ -13,7 +13,17 @@ seed 12) and on a noisy 480x854 pair (mean and max |d| in px); then
 in both packages, sites drawn per batch) and the share of lattice sites
 of a 5x96x112 clip among their own matches; then the API-default
 ``denoise`` of the 4x40x48 clip in each aggregation mode (PSNR gap and
-mean |d| in gray levels).  Takes ~2 minutes on 4 threads.
+mean |d| in gray levels).  Takes ~2 minutes on 4 threads.  Then (section
+``oracle``, ~2 minutes more) the port and ``vnlb_tpu`` against the C++
+oracle (``vnlb_tpu_torch.testing.oracle``) and the NumPy oracle
+(``testing/npref.py``): the gather search on tests/test_oracle.py's l2
+inputs, one stage-0 pass on its 3x32x32 clip, the Bayes filter at both
+steps against npref, the oracle's seconds, and both passes of the
+3x48x48 clip (``synthetic_video(3, 48, 48, seed=0)``, noise seed 1) in
+scripts/compare_oracle.py's config, with ``agg_k=0, cols_bf16=False`` and
+with ``eig_method="poly"`` (PSNR of basic / deno and the mean relative
+error of each pass).  Arguments name the sections to run (``flows``,
+``compat``, ``self_match``, ``modes``, ``oracle``; all by default).
 """
 
 import os
@@ -33,10 +43,15 @@ import torch  # noqa: E402
 import vnlb_tpu  # noqa: E402
 import vnlb_tpu.compat as jcompat  # noqa: E402
 from vnlb_tpu.ops import flow as jf  # noqa: E402
+from vnlb_tpu.ops.bayes import bayes_denoise as j_bayes  # noqa: E402
 
 import vnlb_tpu_torch as vt  # noqa: E402
 import vnlb_tpu_torch.compat as tcompat  # noqa: E402
 from vnlb_tpu_torch.ops import flow as tf  # noqa: E402
+from vnlb_tpu_torch.ops.bayes import bayes_denoise as t_bayes  # noqa: E402
+from vnlb_tpu_torch.ops.search import exec_search  # noqa: E402
+from vnlb_tpu_torch.testing import npref  # noqa: E402
+from vnlb_tpu_torch.testing import oracle as orc  # noqa: E402
 from vnlb_tpu_torch.testing.data import add_noise, synthetic_video  # noqa
 from vnlb_tpu_torch.utils.metrics import compute_psnr  # noqa: E402
 
@@ -162,9 +177,110 @@ def modes():
               f"dB, mean |d| {mad[0]:.4f} / {mad[1]:.4f}", flush=True)
 
 
+def _rel(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    return np.abs(got - want).mean() / (np.abs(want).mean() + 1e-8)
+
+
+def oracle():
+    import time
+
+    zf32 = np.zeros((3, 2, 32, 32), np.float32)
+    orc.lib()
+    # the gather search on tests/test_oracle.py::test_search_parity_l2's
+    # inputs
+    rng = np.random.default_rng(1)
+    video = rng.uniform(0, 255, (4, 3, 40, 44)).astype(np.float32)
+    ff = rng.uniform(-2, 2, (4, 2, 40, 44)).astype(np.float32)
+    bf = rng.uniform(-2, 2, (4, 2, 40, 44)).astype(np.float32)
+    scfg = vt.default_config(20.0).stage(1).replace(nwt_b=2, nwt_f=2,
+                                                    npatches=12)
+    sites = np.array([[1, 4, 6], [2, 20, 30], [0, 0, 0], [2, 33, 37]],
+                     np.int32)
+    pv, pi = exec_search(_t(video), torch.from_numpy(sites), _t(ff), _t(bf),
+                         scfg)
+    ov, oi = orc.oracle_search(video, sites, ff, bf, scfg)
+    print(f"[oracle] search l2: indices equal {(pi.numpy() == oi).mean():.4f}"
+          f", max |dd| {np.abs(pv.numpy() - ov).max():.3g}", flush=True)
+
+    # one stage-0 pass, tests/test_oracle.py::test_end_to_end_parity
+    clean = synthetic_video(3, 32, 32, seed=5)
+    noisy = add_noise(clean, 20.0, seed=6)
+    cfg = vt.default_config(20.0).stage(0).replace(
+        stype="l2", agg_k=0, cols_bf16=False, eig_method="jacobi")
+    t0 = time.perf_counter()
+    want = orc.oracle_proc_nl(noisy, None, zf32, zf32, cfg)
+    o_s = time.perf_counter() - t0
+    got = vt.proc_nl(_t(noisy), None, None, _t(zf32), _t(zf32), cfg)
+    print(f"[oracle] one stage-0 pass 3x32x32: mean relative "
+          f"{_rel(got, want):.3g}, max |d| "
+          f"{np.abs(got.numpy() - want).max():.3g}; oracle {o_s:.2f} s",
+          flush=True)
+
+    # the Bayes filter (eig_method="xla") at both steps against npref
+    for step in (0, 1):
+        bcfg = vt.default_config(20.0, preset="default",
+                                 eig_method="xla").stage(step)
+        r = np.random.default_rng(10 + step)
+        shp = (6, bcfg.npatches, bcfg.pt, 3, bcfg.ps, bcfg.ps)
+        pb = (r.normal(0, 12, shp[:1] + (1,) + shp[2:])
+              + r.normal(0, 2, shp)).astype(np.float32) + 120.0
+        pn = (pb + r.normal(0, 20, shp)).astype(np.float32)
+        fl = np.arange(6) < 2
+        want, _ = npref.bayes_denoise(
+            pn, pb if step else None, fl, step=step, sigma2=bcfg.sigma2,
+            sigmab2=bcfg.sigmab2, rank=bcfg.rank, thresh=bcfg.thresh,
+            cpatches=bcfg.cpatches)
+
+        def rows(p):
+            return torch.from_numpy(p).permute(0, 1, 3, 2, 4, 5).reshape(
+                6, bcfg.npatches, 3, -1)
+
+        got, _ = t_bayes(rows(pn), rows(pb) if step else None,
+                         torch.from_numpy(fl) if step else None, bcfg)
+        jgot, _ = j_bayes(jnp.asarray(pn), jnp.asarray(pb) if step else None,
+                          jnp.asarray(fl) if step else None,
+                          vnlb_tpu.default_config(
+                              20.0, preset="default",
+                              eig_method="xla").stage(step))
+        scale = np.abs(want).max()
+        print(f"[oracle] bayes step {step} vs npref: port "
+              f"{np.abs(got.numpy() - want).max() / scale:.3g}, vnlb_tpu "
+              f"{np.abs(np.asarray(jgot) - want).max() / scale:.3g} of the "
+              f"scale", flush=True)
+
+    # both passes, 3x48x48, scripts/compare_oracle.py's config
+    clean = synthetic_video(3, 48, 48, seed=0)
+    noisy = add_noise(clean, 20.0, seed=1)
+    base = dict(preset="iphone", stype=["l2", "l2"], eig_method="jacobi")
+    exact = dict(base, agg_k=0, cols_bf16=False)
+    t0 = time.perf_counter()
+    o_d, o_b = orc.oracle_denoise(noisy, 20.0, vt.default_config(20.0,
+                                                                 **base))
+    o_s = time.perf_counter() - t0
+    print(f"[oracle] both passes 3x48x48: oracle {o_s:.2f} s, basic / deno "
+          f"{compute_psnr(o_b, clean):.5f} / {compute_psnr(o_d, clean):.5f} "
+          f"dB", flush=True)
+    runs = [("port preset", "port", base), ("vnlb_tpu preset", "jax", base),
+            ("port exact", "port", exact), ("vnlb_tpu exact", "jax", exact),
+            ("port exact poly", "port", dict(exact, eig_method="poly"))]
+    for name, side, kw in runs:
+        if side == "port":
+            d, b, _ = vt.denoise(noisy, 20.0, cfg=vt.default_config(20.0, **kw),
+                                 device="cpu")
+        else:
+            d, b, _ = vnlb_tpu.denoise(
+                noisy, 20.0, cfg=vnlb_tpu.default_config(20.0, **kw))
+        d, b = np.asarray(d), np.asarray(b)
+        print(f"[oracle] {name}: basic / deno {compute_psnr(b, clean):.5f} / "
+              f"{compute_psnr(d, clean):.5f} dB, mean relative "
+              f"{_rel(b, o_b):.3g} / {_rel(d, o_d):.3g}", flush=True)
+
+
+SECTIONS = dict(flows=flows, compat=compat, self_match=self_match,
+                modes=modes, oracle=oracle)
+
 if __name__ == "__main__":
     torch.set_num_threads(4)
-    flows()
-    compat()
-    self_match()
-    modes()
+    for name in sys.argv[1:] or SECTIONS:
+        SECTIONS[name]()

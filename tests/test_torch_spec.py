@@ -200,7 +200,8 @@ def test_port_imports_without_jax():
             "vnlb_tpu_torch.ops.agg, vnlb_tpu_torch.utils, "
             "vnlb_tpu_torch.utils.index, vnlb_tpu_torch.utils.timer, "
             "vnlb_tpu_torch.utils.logger, vnlb_tpu_torch.utils.flops, "
-            "vnlb_tpu_torch.viz, vnlb_tpu_torch.viz.explore_gp; "
+            "vnlb_tpu_torch.viz, vnlb_tpu_torch.viz.explore_gp, "
+            "vnlb_tpu_torch.testing.npref, vnlb_tpu_torch.testing.oracle; "
             "from vnlb_tpu_torch.parallel.pipe import stage_meshes, "
             "pipelined_world; "
             "from vnlb_tpu_torch.utils import compute_ssim, coords2idx, "
@@ -215,6 +216,9 @@ def test_port_imports_without_jax():
             "assert callable(vnlb_tpu_torch.testing.data.synthetic_video_v2); "
             "assert callable(vnlb_tpu_torch.denoise_mod); "
             "assert callable(vnlb_tpu_torch.proc_nn); "
+            "assert callable(vnlb_tpu_torch.testing.oracle.lib); "
+            "assert vnlb_tpu_torch.testing.oracle._lib is None; "
+            "assert callable(vnlb_tpu_torch.testing.npref.bayes_denoise); "
             "assert 'PIL' not in sys.modules; "
             "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'vnlb_tpu.')) for m in sys.modules if sys.modules[m] is not None)")

@@ -9,14 +9,18 @@ its launch shapes, ``k1_cases``, beside its bound and its FP32 issue
 floor, with its launch plan held to the library's), holds small-clip
 PSNRs of every preset and filter mode, and of ``denoise_mod``, to the JAX
 package's, then runs the
-two-pass ``denoise`` on a 5x480x854 clip at sigma=20 seven ways and checks
+two-pass ``denoise`` on a 5x480x854 clip at sigma=20 ten ways and checks
 each output: the bench config (preset iphone, eig_method poly, step_s 6,
 border_mode mask, topk exact, zero flow), the API default (``denoise(noisy,
 sigma)`` with no cfg: step_s 3, sliding borders) with zero flow and with
 the clip's own drift flow, the API default with ``poly_impl="pallas"``
 (kernel K5's tensor-core design in both passes) and the ``default`` preset
 (w_s=27, pt=2 in the first pass: K2's wide tensor-core design on (100,
-98) groups), the API default with
+98) groups), the API default with ``couple_channels`` (K2's streamed Gram
+route on the joint (100, 147) and (60, 294) groups), without
+``poly_bf16`` (K2's wide design and streamed Gram route in split TF32) and
+with ``poly_econ=False, poly_bf16=False`` (K5 in split TF32 in the first
+pass), the API default with
 the all-rows dense search (``dense_rows="full"``: kernel K3) and the exact
 and the streaming top-K; then ``denoise_streaming`` of a 24x480x854 clip
 against the whole-clip ``denoise``, and ``denoise_pipelined`` with both
@@ -51,9 +55,10 @@ one pass with the kernels and both passes of a 3x48x48 clip (the
 oracle's semantics within 2e-3 mean relative error and 0.01 dB; K2's
 poly run within 0.1 dB of the jacobi run).  K2's and
 K5's lines name the design each group shape takes (tensor cores at width 64 or
-128, or shared memory), a tensor-core design's plan against its Python
-mirror and its stated blocks per SM, and the old design's time on the
-same inputs; each group shape's repeat run is bitwise equal; and
+128, bf16 or split-TF32 operands, or shared memory), a tensor-core design's
+plan against its Python mirror and its stated blocks per SM, and the
+shared-memory design's time on the same inputs; each group shape's repeat
+run is bitwise equal; and
 every 480p run logs K1's and K2's device time and launches (CUDA events
 around each launch, in one extra run); the API default's K1 launches are
 logged by shape (``k1_api_default``).  Every phase prints
@@ -104,6 +109,12 @@ REF_SMALL_MODES = {
                     dict(basic=30.020913, deno=30.153355)),
     "couple_channels": (dict(couple_channels=True),
                         dict(basic=29.922595, deno=30.464622)),
+    # without poly_bf16 (scripts/torch_cpu_parity.py small_f32): K2 and K5
+    # in split TF32 on the card
+    "poly_bf16_off": (dict(poly_bf16=False),
+                      dict(basic=29.962205, deno=30.117504)),
+    "poly_econ_off_f32": (dict(poly_econ=False, poly_bf16=False),
+                          dict(basic=30.020904, deno=30.133784)),
     "deno_ave": (dict(deno="ave"), dict(basic=22.119456, deno=22.119456)),
     "dense_full": (dict(dense_rows="full"),
                    dict(basic=29.962152, deno=30.117215)),
@@ -127,8 +138,9 @@ HALO_STREAM_T, HALO_STREAM_CFG = 12, dict(nwt_f=2, nwt_b=2,
                                           border_mode="mask")
 # H100 SXM data-sheet peaks: f32 on CUDA cores, bf16 on tensor cores (a
 # product of bf16-rounded operands accumulated in f32 is exactly what a
-# bf16 tensor-core MMA computes), HBM3
-PEAK_F32, PEAK_BF16, HBM_BPS = 67e12, 989e12, 3.35e12
+# bf16 tensor-core MMA computes), TF32 on tensor cores (an f32 product in
+# split TF32 is three of them), HBM3
+PEAK_F32, PEAK_BF16, PEAK_TF32, HBM_BPS = 67e12, 989e12, 494.7e12, 3.35e12
 
 
 def log(phase, **kv):
@@ -194,9 +206,12 @@ def rel_err(got, want):
     return ((got - want).abs() / want.abs().clamp(min=1.0)).max().item()
 
 
-def bound(f32_flops, bf16_flops, nbytes):
-    """(least ms the card could take, what bounds it)."""
-    t_ops = f32_flops / PEAK_F32 + bf16_flops / PEAK_BF16
+def bound(f32_flops, bf16_flops, nbytes, x3_flops=0):
+    """(least ms the card could take, what bounds it); ``x3_flops`` are f32
+    products that take the lesser of f32 CUDA cores and split TF32 (three
+    TF32 products each; the lesser is split TF32)."""
+    t_ops = (f32_flops / PEAK_F32 + bf16_flops / PEAK_BF16
+             + min(x3_flops / PEAK_F32, 3 * x3_flops / PEAK_TF32))
     t_mem = nbytes / HBM_BPS
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem
                                      else "bytes")
@@ -299,10 +314,10 @@ def k1_api_phase(per, k1_shapes, api_cfg):
 
 
 def econ_work(g, k, p, scfg):
-    """(f32 flops, bf16-operand flops, bytes) of K2 on g groups of (k, p):
-    the covariance or Gram (and xn xc^T) products take f32 operands, the
-    chain and the applications bf16-rounded ones (f32 without
-    poly_bf16)."""
+    """(f32 flops, bf16-operand flops, bytes, split-TF32 flops) of K2 on g
+    groups of (k, p): the covariance or Gram (and xn xc^T) products take
+    f32 operands, the chain and the applications bf16-rounded ones (all f32
+    without poly_bf16, bounded as split TF32)."""
     from vnlb_tpu_torch.ops.polyspec import econ_params
 
     ep = econ_params(scfg)
@@ -312,15 +327,16 @@ def econ_work(g, k, p, scfg):
     else:
         f32, low = k * p * p, chain * p ** 3 + k * p * p
     if not ep["rnd"]:
-        f32, low = f32 + low, 0
-    return 2 * g * f32, 2 * g * low, 3 * g * k * p * 4
+        return 0, 0, 3 * g * k * p * 4, 2 * g * (f32 + low)
+    return 2 * g * f32, 2 * g * low, 3 * g * k * p * 4, 0
 
 
 def poly_work(g, k, p, scfg):
-    """(f32 flops, bf16-operand flops, bytes) of K5 on g groups of (k, p):
-    the covariance and the xn-side product (xn W left, xn F right) take f32
-    operands; the sign gate, the T_j products and F = W Q bf16-rounded
-    ones (f32 without poly_bf16)."""
+    """(f32 flops, bf16-operand flops, bytes, split-TF32 flops) of K5 on g
+    groups of (k, p): the covariance and the xn-side product (xn W left,
+    xn F right) take f32 operands; the sign gate, the T_j products and F =
+    W Q bf16-rounded ones (all f32 without poly_bf16, bounded as split
+    TF32)."""
     from vnlb_tpu_torch.ops.polyspec import poly_params
 
     pp = poly_params(scfg)
@@ -331,8 +347,8 @@ def poly_work(g, k, p, scfg):
     else:
         low = gate + pp["wdeg"] * k * p * p
     if not pp["rnd"]:
-        f32, low = f32 + low, 0
-    return 2 * g * f32, 2 * g * low, 3 * g * k * p * 4
+        return 0, 0, 3 * g * k * p * 4, 2 * g * (f32 + low)
+    return 2 * g * f32, 2 * g * low, 3 * g * k * p * 4, 0
 
 
 def k3_work(vid, n_f, scfg):
@@ -434,6 +450,8 @@ def e2e(vt, name, noisy, clean, dev, counters, expect, cfg=None,
     pp_deno = compute_psnr(dp.cpu().numpy(), clean)
     log(f"{name}_plain", seconds=f"{plain_s:.4f}",
         psnr_basic=f"{pp_basic:.4f}", psnr_deno=f"{pp_deno:.4f}",
+        gap_basic_db=f"{p_basic - pp_basic:+.4f}",
+        gap_deno_db=f"{p_deno - pp_deno:+.4f}",
         mean_abs_diff=f"{(dp - deno).abs().mean().item():.4g}",
         wall=f"{time.perf_counter() - t0:.2f}")
     if not (abs(pp_basic - p_basic) < 0.02 and abs(pp_deno - p_deno) < 0.02):
@@ -1555,8 +1573,9 @@ def main():
     from vnlb_tpu_torch.ops.dense_dist import card_plan as k3_card_plan
     from vnlb_tpu_torch.ops.dense_dist import plan as plan_k3
     from vnlb_tpu_torch.ops import poly_filter as k5
-    from vnlb_tpu_torch.ops.econ_filter import BLOCKS_PER_SM as K2_BLOCKS
+    from vnlb_tpu_torch.ops.econ_filter import blocks_per_sm as k2_blocks
     from vnlb_tpu_torch.ops.econ_filter import design as econ_design
+    from vnlb_tpu_torch.ops.econ_filter import width as k2_width
     from vnlb_tpu_torch.ops.econ_filter import (econ_filter,
                                                 econ_filter_kernel,
                                                 econ_filter_plain,
@@ -1828,8 +1847,9 @@ def main():
     # ---- 6. K2 vs plain, both routes, at G=768 and at the main path's
     # chunk of 4096 sites x 3 channels (iphone shapes: the tensor-core
     # design, timed beside the shared-memory design on the same inputs),
-    # the chunk without poly_bf16, then at the group shapes beyond shared
-    # memory (pt=2 first pass, couple_channels) ----
+    # the pt=2 first pass, the chunk without poly_bf16 (split TF32), and
+    # couple_channels' joint groups at the chunk's 4096 sites (one group a
+    # site: the streamed Gram route) ----
     def filter_check(tag, fn, plain, work, scfg, g, k, p, tol, reps,
                      beside=None, tags=None):
         base = rng.normal(size=(g, 1, p)).astype(np.float32) * 30
@@ -1868,14 +1888,18 @@ def main():
                 for name, scfg in (("matrix(s0)", s0), ("gram(s1)", s1))]
     k2_cases += [(768, "matrix(default s0)", dflt0, 100, 98),
                  (3 * 4096, "matrix(default s0)", dflt0, 100, 98),
-                 (768, "gram(couple s0)", s0, 100, 147),
-                 (768, "gram(couple s1)", s1, 60, 294),
-                 (768, "gram(couple default s0)", dflt0, 100, 294),
+                 (4096, "gram(couple s0)", s0, 100, 147),
+                 (4096, "gram(couple s1)", s1, 60, 294),
+                 (4096, "gram(couple default s0)", dflt0, 100, 294),
+                 (4096, "gram(couple s0) f32", s0.replace(poly_bf16=False),
+                  100, 147),
                  (3 * 4096, "matrix(s0) f32", s0.replace(poly_bf16=False),
                   100, 49),
                  (3 * 4096, "gram(s1) f32", s1.replace(poly_bf16=False),
-                  60, 98)]
-    def tc_tags(tag, kind, plan, mirror, blocks):
+                  60, 98),
+                 (3 * 4096, "matrix(default s0) f32",
+                  dflt0.replace(poly_bf16=False), 100, 98)]
+    def tc_tags(tag, kind, plan, mirror, blocks, width, bf16):
         """A tensor-core design's plan on the card against its Python
         mirror and its stated blocks per SM."""
         smem, per_sm = plan
@@ -1883,17 +1907,22 @@ def main():
             raise AssertionError(f"{tag}: {per_sm} blocks per SM and {smem}"
                                  f" bytes; the wrapper's plan: {blocks} and "
                                  f"{mirror}")
-        return dict(design=kind, smem_bytes=smem, blocks_per_sm=per_sm,
+        return dict(design=kind, operands="bf16" if bf16 else "split_tf32",
+                    width=width, smem_bytes=smem, blocks_per_sm=per_sm,
                     blocks_stated=blocks)
 
     for g, name, scfg, k, p in k2_cases:
         # the design the shape takes; beside a tensor-core design, the
         # shared-memory design on the same inputs
-        kind = econ_design(k, p, scfg.poly_bf16)
+        bf16 = scfg.poly_bf16
+        kind = econ_design(k, p, bf16)
         tags, beside = dict(design=kind), None
         if kind != "smem":
-            tags = tc_tags(f"k2 {name}", kind, econ_tc_plan(k, p, kind),
-                           smem_bytes(kind, k, p), K2_BLOCKS[kind])
+            tags = tc_tags(f"k2 {name}", kind,
+                           econ_tc_plan(k, p, kind, bf16),
+                           smem_bytes(kind, k, p, bf16),
+                           k2_blocks(kind, k, p, bf16),
+                           k2_width(kind, k, p, bf16), bf16)
             beside = {"smem_design": lambda a, b, c: econ_filter_kernel(
                 a, b, c, smem_design=True)}
         err, k2_times[name, g] = filter_check(
@@ -1905,22 +1934,29 @@ def main():
     # ---- 6b. K5 vs plain: right route (stage 0, K=100 >= p=49) and left
     # route (stage 1, K=60 < p=98), at G=768 and at one chunk, on the
     # tensor-core design (the shared-memory design timed beside on the same
-    # inputs), then the chunk without poly_bf16 ----
+    # inputs), then the chunk without poly_bf16 (split TF32), then
+    # couple_channels' joint groups (the shared-memory design) at the
+    # chunk's 4096 sites ----
     k5_err = 0.0
-    k5_times = {}
-    k5_cases = [(g, name, scfg) for g in (768, 3 * 4096)
+    k5_times, k5_errs = {}, {}
+    k5_cases = [(g, name, scfg, scfg.npatches, scfg.pdim)
+                for g in (768, 3 * 4096)
                 for name, scfg in (("right(s0)", a0), ("left(s1)", a1))]
-    k5_cases += [(3 * 4096, "right(s0) f32", a0.replace(poly_bf16=False)),
-                 (3 * 4096, "left(s1) f32", a1.replace(poly_bf16=False))]
-    for g, name, scfg in k5_cases:
-        k, p = scfg.npatches, scfg.pdim
-        kind = k5.design(k, p, scfg.poly_bf16)
+    k5_cases += [(3 * 4096, "right(s0) f32", a0.replace(poly_bf16=False),
+                  100, 49),
+                 (3 * 4096, "left(s1) f32", a1.replace(poly_bf16=False),
+                  60, 98),
+                 (4096, "left(couple s0)", a0, 100, 147),
+                 (4096, "left(couple s1)", a1, 60, 294)]
+    for g, name, scfg, k, p in k5_cases:
+        bf16 = scfg.poly_bf16
+        kind = k5.design(k, p, bf16)
         tags, beside = dict(design=kind), None
         if kind == "tc":
-            tags = tc_tags(f"k5 {name}", kind, k5.tc_plan(k, p),
-                           k5.tc_smem_bytes(k, p),
-                           k5.BLOCKS_PER_SM[k5.tc_width(p)])
-            tags["width"] = k5.tc_width(p)
+            tags = tc_tags(f"k5 {name}", kind, k5.tc_plan(k, p, bf16),
+                           k5.tc_smem_bytes(k, p, bf16),
+                           k5.BLOCKS_PER_SM[k5.tc_width(p)],
+                           k5.tc_width(p), bf16)
             beside = {"smem_design": lambda a, b, c: k5.poly_filter_kernel(
                 a, b, c, smem_design=True)}
         err, k5_times[name, g] = filter_check(
@@ -1928,6 +1964,7 @@ def main():
             g, k, p, 2e-2 if scfg.poly_bf16 else 1e-4,
             5 if g == 768 else 2, beside=beside, tags=tags)
         k5_err = max(k5_err, err)
+        k5_errs[name] = max(k5_errs.get(name, 0.0), err)
 
     # ---- 7. small-clip parity with the JAX package (CPU numbers) ----
     small_clean = synthetic_video(5, 96, 112, seed=0)
@@ -1971,7 +2008,19 @@ def main():
             ("e2e_poly_pallas", k145,
              vt.default_config(SIGMA, poly_impl="pallas"), None),
             ("e2e_preset_default", k124,
-             vt.default_config(SIGMA, preset="default"), None))
+             vt.default_config(SIGMA, preset="default"), None),
+            # the paths of K2's and K5's redesigned shared-memory shapes:
+            # couple_channels (the streamed Gram route), poly_bf16 off
+            # (split TF32: the wide design and the streamed Gram route),
+            # poly_econ off without bf16 (K5 in split TF32 in the first
+            # pass; the second pass's K < p groups take the fused series)
+            ("e2e_api_couple", k124,
+             vt.default_config(SIGMA, couple_channels=True), None),
+            ("e2e_api_f32", k124, vt.default_config(SIGMA, poly_bf16=False),
+             None),
+            ("e2e_poly_econ_off_f32", k145,
+             vt.default_config(SIGMA, poly_econ=False, poly_bf16=False),
+             None))
     launches, k1_runs = {}, {}
     for name, want, rcfg, fl in runs:
         # only the counts and the K1 times: a run's outputs stay out of the
@@ -1984,10 +2033,15 @@ def main():
                         compute_psnr(out[1].cpu().numpy(), clean))
         del out
     # the redesigned filter kernels ran on the paths that take them: K5's
-    # tensor-core design under poly_impl="pallas", K2's wide design on
-    # preset default's first pass
+    # tensor-core design under poly_impl="pallas" and in split TF32, K2's
+    # wide design on preset default's first pass and in split TF32, its
+    # streamed Gram route under couple_channels and in split TF32
     for name, kern in (("e2e_poly_pallas", "poly_filter.tc"),
-                       ("e2e_preset_default", "econ_filter.tcw")):
+                       ("e2e_preset_default", "econ_filter.tcw"),
+                       ("e2e_api_couple", "econ_filter.tcg"),
+                       ("e2e_api_f32", "econ_filter.tcw"),
+                       ("e2e_api_f32", "econ_filter.tcg"),
+                       ("e2e_poly_econ_off_f32", "poly_filter.tc")):
         if not launches[name][kern] > 0:
             raise AssertionError(f"{name}: no launch of {kern}: "
                                  f"{launches[name]}")
@@ -2121,6 +2175,9 @@ def main():
     p_kms, p_pms, (k5_bms, k5_by) = k5_times["left(s1)", 3 * 4096]
     w_kms, w_pms, (k2w_bms, k2w_by) = k2_times["matrix(default s0)",
                                                3 * 4096]
+    cg_kms, cg_pms, (cg_bms, cg_by) = k2_times["gram(couple s0)", 4096]
+    f2_kms, f2_pms, (f2_bms, f2_by) = k2_times["gram(s1) f32", 3 * 4096]
+    f5_kms, f5_pms, (f5_bms, f5_by) = k5_times["right(s0) f32", 3 * 4096]
     k3_kms, k3_pms, (k3_bms, k3_by) = k3_times["s0.l0"]
     print(json.dumps({"kernels": [
         {"name": "patch_dist", "route": "cuda",
@@ -2160,6 +2217,27 @@ def main():
          "launches": launches["e2e_dense_full"]["dense_dist"],
          "max_abs_err": k3_err, "ms": k3_kms, "plain_ms": k3_pms,
          "bound_ms": k3_bms, "bound_by": k3_by, "library_ms": None},
+        {"name": "econ_filter_tcg", "route": "cuda",
+         "source": "vnlb_tpu_torch/csrc/econ_filter.cu",
+         "replaces": "vnlb_tpu/ops/pallas_filter.py:260",
+         "launches": launches["e2e_api_couple"]["econ_filter.tcg"],
+         "max_abs_err": max(v for n, v in k2_errs.items() if "couple" in n),
+         "ms": cg_kms, "plain_ms": cg_pms, "bound_ms": cg_bms,
+         "bound_by": cg_by, "library_ms": None},
+        {"name": "econ_filter_split_tf32", "route": "cuda",
+         "source": "vnlb_tpu_torch/csrc/econ_filter.cu",
+         "replaces": "vnlb_tpu/ops/pallas_filter.py:260",
+         "launches": launches["e2e_api_f32"]["econ_filter"],
+         "max_abs_err": max(v for n, v in k2_errs.items() if "f32" in n),
+         "ms": f2_kms, "plain_ms": f2_pms, "bound_ms": f2_bms,
+         "bound_by": f2_by, "library_ms": None},
+        {"name": "poly_filter_split_tf32", "route": "cuda",
+         "source": "vnlb_tpu_torch/csrc/poly_filter.cu",
+         "replaces": "vnlb_tpu/ops/pallas_poly.py:153",
+         "launches": launches["e2e_poly_econ_off_f32"]["poly_filter"],
+         "max_abs_err": max(v for n, v in k5_errs.items() if "f32" in n),
+         "ms": f5_kms, "plain_ms": f5_pms, "bound_ms": f5_bms,
+         "bound_by": f5_by, "library_ms": None},
         {"name": "patch_dist_tile", "route": "cuda",
          "source": "vnlb_tpu_torch/csrc/patch_dist.cu",
          "replaces": "vnlb_tpu/ops/pallas_smat.py:526",

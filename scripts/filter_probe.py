@@ -14,7 +14,8 @@ shared-memory design), a bitwise repeat check and, at 12,288 groups, the
 times of the design, of the shared-memory design and of the plain version
 (CUDA events).  ``--sha-only`` prints only a SHA-256 of K2's output at the
 main path's two shapes from fixed inputs, for the package under ``--tree``
-(default: this checkout), so that two trees can be compared bit for bit.
+(default: this checkout), and of the other bf16 designs (K2 at width 128,
+K5's two routes), so that two trees can be compared bit for bit.
 """
 
 import argparse
@@ -27,15 +28,38 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# (kernel, groups, K, p, preset, stage): the main path's K2 shapes, preset
-# default's (100, 98), K5's two routes, ragged shapes of each design
-SHAPES = [("k2", 12288, 100, 49, "iphone", 0), ("k2", 12288, 60, 98, "iphone", 1),
-          ("k2", 12288, 100, 98, "default", 0), ("k2", 777, 100, 98, "default", 0),
-          ("k2", 535, 70, 65, "default", 0), ("k2", 768, 100, 147, "iphone", 0),
-          ("k5", 12288, 100, 49, "iphone", 0), ("k5", 12288, 60, 98, "iphone", 1),
-          ("k5", 777, 37, 98, "iphone", 1), ("k5", 535, 64, 33, "iphone", 0),
-          ("k5", 300, 16, 128, "iphone", 1), ("k5", 300, 100, 98, "default", 0),
-          ("k5", 300, 20, 49, "iphone", 1), ("k5", 768, 60, 147, "iphone", 1)]
+# (kernel, groups, K, p, preset, stage, poly_bf16): the main path's K2
+# shapes, preset default's (100, 98), K5's two routes, ragged shapes of each
+# design; without poly_bf16 (split TF32) and the couple_channels groups at
+# the path's 4096 groups (one a site)
+SHAPES = [("k2", 12288, 100, 49, "iphone", 0, True),
+          ("k2", 12288, 60, 98, "iphone", 1, True),
+          ("k2", 12288, 100, 98, "default", 0, True),
+          ("k2", 777, 100, 98, "default", 0, True),
+          ("k2", 535, 70, 65, "default", 0, True),
+          ("k2", 12288, 100, 49, "iphone", 0, False),
+          ("k2", 12288, 60, 98, "iphone", 1, False),
+          ("k2", 12288, 100, 98, "default", 0, False),
+          ("k2", 535, 37, 98, "iphone", 1, False),
+          ("k2", 4096, 100, 147, "iphone", 0, True),
+          ("k2", 4096, 60, 294, "iphone", 1, True),
+          ("k2", 4096, 100, 294, "default", 0, True),
+          ("k2", 777, 100, 147, "iphone", 0, False),
+          ("k2", 777, 60, 294, "iphone", 1, False),
+          ("k5", 12288, 100, 49, "iphone", 0, True),
+          ("k5", 12288, 60, 98, "iphone", 1, True),
+          ("k5", 12288, 100, 49, "iphone", 0, False),
+          ("k5", 12288, 60, 98, "iphone", 1, False),
+          ("k5", 777, 37, 98, "iphone", 1, True),
+          ("k5", 535, 64, 33, "iphone", 0, True),
+          ("k5", 535, 64, 33, "iphone", 0, False),
+          ("k5", 300, 20, 49, "iphone", 1, False),
+          ("k5", 300, 16, 128, "iphone", 1, True),
+          ("k5", 300, 100, 98, "default", 0, True),
+          ("k5", 300, 20, 49, "iphone", 1, True),
+          ("k5", 768, 60, 147, "iphone", 1, True)]
+# group counts that are timed
+TIMED = (4096, 12288)
 
 
 def cuda_ms(fn, reps=5):
@@ -82,12 +106,20 @@ def ptxas_report(_build):
 
 
 def sha_only(vt, dev):
+    """SHA-256 of the bf16 designs' outputs: K2 at width 64 (the main
+    path's shapes) and 128 (preset default's (100, 98)), K5 both routes."""
     from vnlb_tpu_torch.ops.econ_filter import econ_filter_kernel
-    for k, p, stage in ((100, 49, 0), (60, 98, 1)):
-        cfg = vt.default_config(20.0).stage(stage)
+    from vnlb_tpu_torch.ops.poly_filter import poly_filter_kernel
+    for name, fn, k, p, preset, stage in (
+            ("k2", econ_filter_kernel, 100, 49, "iphone", 0),
+            ("k2", econ_filter_kernel, 60, 98, "iphone", 1),
+            ("k2", econ_filter_kernel, 100, 98, "default", 0),
+            ("k5", poly_filter_kernel, 100, 49, "iphone", 0),
+            ("k5", poly_filter_kernel, 60, 98, "iphone", 1)):
+        cfg = vt.default_config(20.0, preset=preset).stage(stage)
         xc, xn = groups(np.random.default_rng(k * p), 4096, k, p, dev)
-        out = econ_filter_kernel(xc, xn, cfg).cpu().numpy()
-        print(f"k2_sha K={k} p={p} "
+        out = fn(xc, xn, cfg).cpu().numpy()
+        print(f"{name}_sha K={k} p={p} "
               f"{hashlib.sha256(out.tobytes()).hexdigest()[:16]}", flush=True)
 
 
@@ -114,17 +146,19 @@ def main():
     ptxas_report(_build)
     _build.library()
     sha_only(vt, dev)
-    for kind, g, k, p, preset, stage in SHAPES:
+    for kind, g, k, p, preset, stage, bf16 in SHAPES:
         mod = k2 if kind == "k2" else k5
         kern = k2.econ_filter_kernel if kind == "k2" else k5.poly_filter_kernel
         plain = k2.econ_filter_plain if kind == "k2" else k5.poly_filter_plain
-        cfg = vt.default_config(20.0, preset=preset).stage(stage)
-        dsg = mod.design(k, p, True)
+        cfg = vt.default_config(20.0, preset=preset).stage(stage).replace(
+            poly_bf16=bf16)
+        dsg = mod.design(k, p, bf16)
         if kind == "k2" and dsg != "smem":
-            plan, mirror = k2.tc_plan(k, p, dsg), k2.smem_bytes(dsg, k, p)
-            blocks = k2.BLOCKS_PER_SM[dsg]
+            plan = k2.tc_plan(k, p, dsg, bf16)
+            mirror = k2.smem_bytes(dsg, k, p, bf16)
+            blocks = k2.blocks_per_sm(dsg, k, p, bf16)
         elif kind == "k5" and dsg == "tc":
-            plan, mirror = k5.tc_plan(k, p), k5.tc_smem_bytes(k, p)
+            plan, mirror = k5.tc_plan(k, p, bf16), k5.tc_smem_bytes(k, p, bf16)
             blocks = k5.BLOCKS_PER_SM[k5.tc_width(p)]
         else:
             plan, mirror, blocks = None, 0, 0
@@ -139,12 +173,13 @@ def main():
         def rms(x):
             return ((x - want) ** 2).mean().sqrt().item() / scale
 
-        line = dict(kernel=kind, G=g, K=k, p=p, design=dsg, plan=plan,
+        line = dict(kernel=kind, G=g, K=k, p=p, bf16=bf16, design=dsg,
+                    plan=plan,
                     mirror=mirror, blocks_stated=blocks,
                     rms=f"{rms(got):.3g}", rms_smem=f"{rms(old):.3g}",
                     finite=bool(torch.isfinite(got).all()),
                     bitwise_repeat=bool(torch.equal(got, again)))
-        if g == 12288:
+        if g in TIMED:
             line.update(
                 ms=f"{cuda_ms(lambda: kern(xc, xn, cfg)):.3f}",
                 smem_ms=f"{cuda_ms(lambda: kern(xc, xn, cfg, smem_design=True), 2):.3f}",

@@ -7,7 +7,8 @@ Copies csrc/poly_filter.cu to build/prof/, inserts a barrier and a
 clock64() mark (thread 0 of each block) between the tensor-core kernel's
 phases, builds that copy on its own and runs it once at 12,288 groups of
 each route's main shape: right (100, 49) at width 64, left (60, 98) at
-width 128.  Prints the cycles per group of each phase: wall cycles of a
+width 128, with bf16 operands (poly_bf16) and in split TF32 (without it).
+Prints the cycles per group of each phase: wall cycles of a
 block, so with two blocks on an SM (width 64) each phase also holds the
 time the other block ran.  The marks' barriers slow the kernel a little;
 compare phases, not totals, with the real kernel.
@@ -43,7 +44,7 @@ MARKS = [
     ("right_F", "      // xn = hi + mid + lo exactly"),
     ("right_load_xn", "      // out = xn st(F) in rows of m16n8 tiles"),
     ("left_w_load_xn", "      float zp[NZ], zc[NZ], acc[NZ];"),
-    ("left_z0_syrk", "      tc::store_row(zb0, LDB, pz, [&](int i) { return "
+    ("left_z0_syrk", "      op.store_row(zb0, pz, [&](int i) { return "
                      "zp[i]; });"),
     ("left_recurrence", "#pragma unroll\n      for (int i = 0; i < NZ; ++i) "
                         "{\n        const int r = pz.row(i)"),
@@ -88,8 +89,9 @@ def main():
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
     g = 12288
-    for k, p, stage in ((100, 49, 0), (60, 98, 1)):
-        cfg = vt.default_config(20.0).stage(stage)
+    for (k, p, stage), rnd in ((s, r) for r in (True, False)
+                               for s in ((100, 49, 0), (60, 98, 1))):
+        cfg = vt.default_config(20.0).stage(stage).replace(poly_bf16=rnd)
         pp = poly_params(cfg)
         base = rng.normal(size=(g, 1, p)).astype(np.float32) * 30
         xc, xn = (torch.from_numpy(base + rng.normal(size=(g, k, p))
@@ -105,7 +107,7 @@ def main():
                 pp["n_aggr"], pp["n_polish"], pp["wdeg"], pp["nodes"],
                 xs.data_ptr(), dct.data_ptr(), float(pp["tau"]),
                 float(pp["sb2"]), float(pp["s2"]), *(float(a) for a in _AGGR),
-                torch.cuda.current_stream().cuda_stream)
+                int(rnd), torch.cuda.current_stream().cuda_stream)
             _build.check(err, "profiled poly_filter")
 
         run()
@@ -120,7 +122,8 @@ def main():
         lib.vnlb_prof_read(cycles)
         phases = {name: round(cycles[i] / g)
                   for i, (name, _) in enumerate(MARKS) if cycles[i]}
-        print(f"K={k} p={p} ms_with_marks={start.elapsed_time(stop):.3f} "
+        print(f"K={k} p={p} bf16={rnd} "
+              f"ms_with_marks={start.elapsed_time(stop):.3f} "
               f"cycles_per_group={phases} total={sum(phases.values())}",
               flush=True)
 

@@ -7,8 +7,10 @@ for parent/change comparisons on one CUDA card.
 Runs ``denoise`` on the 5x480x854 clip of chip_smoke.py (sigma 20) with the
 bench config, the API default (zero flow), the API default with
 ``poly_impl="pallas"`` (K5 in both passes), preset ``default`` (K2 on
-(100, 98) groups in the first pass) and the API default with
-``dense_rows="full"`` (K3 planes for the interior sites): one warmup,
+(100, 98) groups in the first pass), the API default with
+``dense_rows="full"`` (K3 planes for the interior sites), with
+``couple_channels`` (K2 on the joint groups), without ``poly_bf16`` and
+with ``poly_econ=False, poly_bf16=False`` (K5 in the first pass): one warmup,
 then ``runs`` (default 3; 0 skips the paths) timed runs each, and prints
 one ``[ab]`` line per path with the walls, the best wall, the peak device
 memory, the PSNR of ``basic`` and ``deno``, K1's, K2's and K3's device
@@ -22,10 +24,11 @@ interior sites at stage 0 levels 0, 1, 2 and stage 1 level 0, the bench
 config's 46,046 stage-1 sites, and the window-start entry on 4096 sites of
 each stage: ``chip_smoke.k1_cases``), then K2
 (``econ_filter``) on the main path's two group shapes (12,288 groups of
-(100, 49) and of (60, 98)), on the same without poly_bf16, on the shapes
-beyond the tensor-core design ((100, 98) of preset ``default``, the
-``couple_channels`` shapes), and K5 (``poly_filter``) on both routes,
-with CUDA events over several launches, one ``[ab]`` line each.  To compare two trees, unpack the
+(100, 49) and of (60, 98)), on the same without poly_bf16, on preset
+``default``'s (100, 98) with and without it, on the ``couple_channels``
+shapes (4096 groups, one a site), and K5 (``poly_filter``) on both routes
+with and without poly_bf16, with CUDA events over several launches, one
+``[ab]`` line each.  To compare two trees, unpack the
 parent's ``vnlb_tpu_torch`` into a directory that .gitignore lists and run
 parent, change, change, parent in one call, e.g.
 
@@ -72,7 +75,11 @@ def main():
     paths = (("bench", bench), ("api_zero", None),
              ("poly_pallas", vt.default_config(20.0, poly_impl="pallas")),
              ("preset_default", vt.default_config(20.0, preset="default")),
-             ("dense_full", vt.default_config(20.0, dense_rows="full")))
+             ("dense_full", vt.default_config(20.0, dense_rows="full")),
+             ("api_couple", vt.default_config(20.0, couple_channels=True)),
+             ("api_f32", vt.default_config(20.0, poly_bf16=False)),
+             ("poly_econ_off_f32",
+              vt.default_config(20.0, poly_econ=False, poly_bf16=False)))
     for name, cfg in paths:
         if not runs:
             break
@@ -152,11 +159,17 @@ def main():
              ("k2_60x98_f32", econ_filter, 12288, 60, 98,
               api.stage(1).replace(**f32), 10),
              ("k2_100x98", econ_filter, 12288, 100, 98, dflt0, 5),
-             ("k2_100x147", econ_filter, 768, 100, 147, api.stage(0), 10),
-             ("k2_60x294", econ_filter, 768, 60, 294, api.stage(1), 10),
-             ("k2_100x294", econ_filter, 768, 100, 294, dflt0, 10),
+             ("k2_100x98_f32", econ_filter, 12288, 100, 98,
+              dflt0.replace(**f32), 3),
+             ("k2_100x147", econ_filter, 4096, 100, 147, api.stage(0), 5),
+             ("k2_60x294", econ_filter, 4096, 60, 294, api.stage(1), 5),
+             ("k2_100x294", econ_filter, 4096, 100, 294, dflt0, 3),
              ("k5_100x49", poly_filter, 12288, 100, 49, api.stage(0), 5),
-             ("k5_60x98", poly_filter, 12288, 60, 98, api.stage(1), 3)]
+             ("k5_60x98", poly_filter, 12288, 60, 98, api.stage(1), 3),
+             ("k5_100x49_f32", poly_filter, 12288, 100, 49,
+              api.stage(0).replace(**f32), 3),
+             ("k5_60x98_f32", poly_filter, 12288, 60, 98,
+              api.stage(1).replace(**f32), 2)]
     for name, fn, g, k, p, cfg, reps in cases:
         base = rng.normal(size=(g, 1, p)).astype(np.float32) * 30
         xc, xn = (torch.from_numpy(base + rng.normal(size=(g, k, p))

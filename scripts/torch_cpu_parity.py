@@ -22,8 +22,13 @@ steps against npref, the oracle's seconds, and both passes of the
 3x48x48 clip (``synthetic_video(3, 48, 48, seed=0)``, noise seed 1) in
 scripts/compare_oracle.py's config, with ``agg_k=0, cols_bf16=False`` and
 with ``eig_method="poly"`` (PSNR of basic / deno and the mean relative
-error of each pass).  Arguments name the sections to run (``flows``,
-``compat``, ``self_match``, ``modes``, ``oracle``; all by default).
+error of each pass).  Section ``small_f32`` (~4 minutes) prints
+``vnlb_tpu``'s and the port's PSNRs of basic / deno on chip_smoke.py's
+small clip (``synthetic_video(5, 96, 112, seed=0)``, noise seed 1) for the
+filter modes without ``poly_bf16`` (``poly_bf16=False``, and with
+``poly_econ=False``): chip_smoke.py's ``REF_SMALL_MODES`` constants for
+them.  Arguments name the sections to run (``flows``, ``compat``,
+``self_match``, ``modes``, ``oracle``, ``small_f32``; all by default).
 """
 
 import os
@@ -277,8 +282,23 @@ def oracle():
               f"{_rel(b, o_b):.3g} / {_rel(d, o_d):.3g}", flush=True)
 
 
+def small_f32():
+    clean = synthetic_video(5, 96, 112, seed=0)
+    noisy = add_noise(clean, 20.0, seed=1)
+    for kw in (dict(poly_bf16=False), dict(poly_econ=False, poly_bf16=False)):
+        jd, jb, _ = vnlb_tpu.denoise(noisy, 20.0,
+                                     cfg=vnlb_tpu.default_config(20.0, **kw))
+        d, b, _ = vt.denoise(noisy, 20.0, cfg=vt.default_config(20.0, **kw),
+                             device="cpu")
+        print(f"[small_f32] {kw}: vnlb_tpu basic / deno "
+              f"{compute_psnr(np.asarray(jb), clean):.6f} / "
+              f"{compute_psnr(np.asarray(jd), clean):.6f} dB; port "
+              f"{compute_psnr(b.numpy(), clean):.6f} / "
+              f"{compute_psnr(d.numpy(), clean):.6f} dB", flush=True)
+
+
 SECTIONS = dict(flows=flows, compat=compat, self_match=self_match,
-                modes=modes, oracle=oracle)
+                modes=modes, oracle=oracle, small_f32=small_f32)
 
 if __name__ == "__main__":
     torch.set_num_threads(4)

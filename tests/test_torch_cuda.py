@@ -18,7 +18,7 @@ from vnlb_tpu_torch.ops.dense_dist import (dense_dist, dense_dist_plain,
                                            frame_range)
 from vnlb_tpu_torch.ops.dense_dist import plan as k3_plan
 from vnlb_tpu_torch.ops import poly_filter as k5
-from vnlb_tpu_torch.ops.econ_filter import (BLOCKS_PER_SM, design,
+from vnlb_tpu_torch.ops.econ_filter import (blocks_per_sm, design,
                                             econ_filter, econ_filter_kernel,
                                             econ_filter_plain, smem_bytes,
                                             tc_plan, tc_smem_bytes)
@@ -315,7 +315,9 @@ def _rel_rms(got, want):
     ("default", 0, 100, 98), ("iphone", 0, 100, 147), ("iphone", 1, 60, 294),
     ("default", 0, 100, 294)])
 def test_econ_filter_kernel_large_groups(card, preset, stage, k, p):
-    """Groups beyond shared memory (pt=2 first pass, couple_channels):
+    """Groups beyond the shared-memory design's shared memory (pt=2 first
+    pass, couple_channels), on the design ``design`` picks (the wide or the
+    streamed Gram tensor-core design) and on the shared-memory design:
     spilled matrices in the per-block workspace, patch blocks read in
     place; 300 groups exceed one persistent grid."""
     cfg = vt.default_config(20.0, preset=preset).stage(stage)
@@ -323,13 +325,17 @@ def test_econ_filter_kernel_large_groups(card, preset, stage, k, p):
     before = econ_filter.launches
     got = econ_filter(xc, xn, cfg)
     want = econ_filter_plain(xc, xn, cfg)
+    old = econ_filter_kernel(xc, xn, cfg, smem_design=True)
     torch.cuda.synchronize()
-    assert econ_filter.launches == before + 1
+    assert econ_filter.launches == before + 2
     assert torch.isfinite(got).all()
     assert _rel_rms(got, want) < 5e-2
-    got32 = econ_filter(xc, xn, cfg.replace(poly_bf16=False))
-    want32 = econ_filter_plain(xc, xn, cfg.replace(poly_bf16=False))
-    assert _rel_rms(got32, want32) < 1e-4
+    assert _rel_rms(old, want) < 5e-2
+    f32 = cfg.replace(poly_bf16=False)
+    want32 = econ_filter_plain(xc, xn, f32)
+    assert _rel_rms(econ_filter(xc, xn, f32), want32) < 1e-4
+    assert _rel_rms(econ_filter_kernel(xc, xn, f32, smem_design=True),
+                    want32) < 1e-4
 
 
 # the tensor-core design's shapes: both main-path shapes at a chunk's
@@ -343,12 +349,14 @@ TC_SHAPES = [(1, 60, 98, 12288), (0, 100, 49, 12288), (1, 37, 98, 777),
 @pytest.mark.parametrize("bf16", [True, False])
 @pytest.mark.parametrize("stage,k,p,g", TC_SHAPES)
 def test_econ_filter_tc_shapes_match_plain(card, stage, k, p, g, bf16):
-    """The tensor-core design under poly_bf16 (the shared-memory design
-    without it) against the plain version at the tolerances of
+    """The tensor-core design under poly_bf16 (without it, split TF32 on
+    the wide design for the matrix route, on the streamed Gram route for
+    the Gram route) against the plain version at the tolerances of
     test_econ_filter_kernel_matches_plain; a repeat run is bitwise equal
     and each call is one launch."""
     cfg = vt.default_config(20.0).stage(stage).replace(poly_bf16=bf16)
-    assert design(k, p, bf16) == ("tc" if bf16 else "smem")
+    assert design(k, p, bf16) == (
+        "tc" if bf16 else "tcg" if k < p else "tcw")
     xc, xn = _groups(np.random.default_rng(k * p + g), g, k, p, card)
     before = econ_filter.launches
     got = econ_filter(xc, xn, cfg)
@@ -364,16 +372,21 @@ def test_econ_filter_tc_shapes_match_plain(card, stage, k, p, g, bf16):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,p", [(100, 49), (60, 98), (37, 98), (64, 33),
                                  (16, 128), (16, 129), (100, 98), (60, 294),
-                                 (100, 147)])
+                                 (100, 147), (100, 294), (129, 300)])
 def test_econ_tc_plan_matches_wrapper(card, k, p):
     """The kernel library's plan of each tensor-core design ("tc" at width
-    64, "tcw" at 128) equals the wrapper's (ops/econ_filter.smem_bytes),
-    and a shape it takes keeps the blocks on an SM that the design states
-    (ops/econ_filter.BLOCKS_PER_SM: two, one)."""
-    for kind in ("tc", "tcw"):
-        smem, per_sm = tc_plan(k, p, kind)
-        assert smem == smem_bytes(kind, k, p)
-        assert per_sm >= BLOCKS_PER_SM[kind] if smem else per_sm == 0
+    64; "tcw" and "tcg" at 64 or 128), with bf16 operands and in split
+    TF32, equals the wrapper's (ops/econ_filter.smem_bytes), and a shape
+    it takes keeps the blocks on an SM that the design states
+    (ops/econ_filter.blocks_per_sm: two at width 64, one at 128)."""
+    for kind in ("tc", "tcw", "tcg"):
+        for rnd in (True, False):
+            smem, per_sm = tc_plan(k, p, kind, rnd)
+            assert smem == smem_bytes(kind, k, p, rnd)
+            if smem:
+                assert per_sm >= blocks_per_sm(kind, k, p, rnd)
+            else:
+                assert per_sm == 0
     assert tc_plan(k, p) == tc_plan(k, p, "tc")
     assert (tc_smem_bytes(k, p) > 0) == (design(k, p, True) == "tc")
 
@@ -388,14 +401,14 @@ TCW_SHAPES = [(100, 98, 12288), (100, 98, 777), (70, 65, 535)]
 @pytest.mark.parametrize("bf16", [True, False])
 @pytest.mark.parametrize("k,p,g", TCW_SHAPES)
 def test_econ_filter_tcw_matches_plain(card, k, p, g, bf16):
-    """The wide tensor-core design under poly_bf16 (the shared-memory design
-    without it) against the plain version at the tolerances of
+    """The wide tensor-core design, bf16 under poly_bf16 and split TF32
+    without it, against the plain version at the tolerances of
     test_econ_filter_tc_shapes_match_plain; a repeat run is bitwise equal,
     each call is one launch of its design, and the shared-memory design
     agrees on the same inputs."""
     cfg = vt.default_config(20.0, preset="default").stage(0).replace(
         poly_bf16=bf16)
-    assert design(k, p, bf16) == ("tcw" if bf16 else "smem")
+    assert design(k, p, bf16) == "tcw"
     xc, xn = _groups(np.random.default_rng(k * p + g), g, k, p, card)
     before = econ_filter.launches
     kind_before = econ_filter.by_design[design(k, p, bf16)]
@@ -410,6 +423,41 @@ def test_econ_filter_tcw_matches_plain(card, k, p, g, bf16):
     assert _rel_rms(got, want) < (5e-2 if bf16 else 1e-4)
     old = econ_filter_kernel(xc, xn, cfg, smem_design=True)
     assert _rel_rms(old, want) < (5e-2 if bf16 else 1e-4)
+
+
+# the streamed Gram route's shapes: couple_channels' joint groups at a
+# count that is not a multiple of the resident blocks (both modes), a
+# ragged K and p, and without poly_bf16 the Gram route's (60, 98) at a
+# chunk's 12,288 groups (under poly_bf16 it takes the width-64 design)
+TCG_SHAPES = [(pr, st, k, p, g, bf16) for pr, st, k, p, g in (
+    ("iphone", 0, 100, 147, 777), ("iphone", 1, 60, 294, 777),
+    ("default", 0, 100, 294, 300), ("iphone", 1, 16, 129, 300))
+    for bf16 in (True, False)] + [("iphone", 1, 60, 98, 12288, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset,stage,k,p,g,bf16", TCG_SHAPES)
+def test_econ_filter_tcg_matches_plain(card, preset, stage, k, p, g, bf16):
+    """The streamed Gram route, bf16 and split TF32, against the plain
+    version at chip_smoke.py's K2 tolerances (rms / scale < 5e-3; 1e-4 in
+    f32); a repeat run is bitwise equal, each call is one launch of the
+    design, and the shared-memory design agrees on the same inputs."""
+    cfg = vt.default_config(20.0, preset=preset).stage(stage).replace(
+        poly_bf16=bf16)
+    assert design(k, p, bf16) == "tcg"
+    xc, xn = _groups(np.random.default_rng(k * p + g + bf16), g, k, p, card)
+    before = econ_filter.by_design["tcg"]
+    got = econ_filter(xc, xn, cfg)
+    again = econ_filter(xc, xn, cfg)
+    want = econ_filter_plain(xc, xn, cfg)
+    old = econ_filter_kernel(xc, xn, cfg, smem_design=True)
+    torch.cuda.synchronize()
+    assert econ_filter.by_design["tcg"] == before + 2
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    tol = 5e-3 if bf16 else 1e-4
+    assert _rel_rms(got, want) < tol
+    assert _rel_rms(old, want) < tol
 
 
 @pytest.mark.cuda
@@ -436,18 +484,22 @@ def test_poly_filter_kernel_matches_plain(card, stage, bf16):
 K5_TC_SHAPES = [(1, 60, 98, 12288), (0, 100, 49, 12288), (1, 37, 98, 777),
                 (0, 64, 33, 535), (1, 16, 128, 300), (0, 100, 98, 300),
                 (1, 20, 49, 300)]
+# the shapes whose f32 buffers exceed the tensor-core design's shared memory
+K5_F32_SMEM = {(16, 128), (100, 98)}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [True, False])
 @pytest.mark.parametrize("stage,k,p,g", K5_TC_SHAPES)
 def test_poly_filter_tc_shapes_match_plain(card, stage, k, p, g, bf16):
-    """K5's tensor-core design under poly_bf16 (the shared-memory design
-    without it) against the plain version, at chip_smoke.py's K5 tolerance
-    (rms / scale < 2e-2) and 1e-4 in f32; a repeat run is bitwise equal and
-    each call is one launch."""
+    """K5's tensor-core design (split TF32 without poly_bf16; the
+    shared-memory design for K5_F32_SMEM's f32 shapes) against the plain
+    version, at chip_smoke.py's K5 tolerance (rms / scale < 2e-2) and 1e-4
+    in f32; a repeat run is bitwise equal and each call is one launch."""
     cfg = vt.default_config(20.0).stage(stage).replace(poly_bf16=bf16)
-    assert k5.design(k, p, bf16) == ("tc" if bf16 else "smem")
+    # split TF32 without poly_bf16, except where its f32 buffers do not fit
+    assert k5.design(k, p, bf16) == (
+        "smem" if not bf16 and (k, p) in K5_F32_SMEM else "tc")
     xc, xn = _groups(np.random.default_rng(k * p + g + 1), g, k, p, card)
     before = poly_filter.launches
     got = poly_filter(xc, xn, cfg)
@@ -465,15 +517,18 @@ def test_poly_filter_tc_shapes_match_plain(card, stage, k, p, g, bf16):
                                  (16, 128), (100, 98), (20, 49), (100, 147),
                                  (60, 294), (65, 98)])
 def test_poly_tc_plan_matches_wrapper(card, k, p):
-    """The kernel library's plan of K5's tensor-core design equals the
-    wrapper's (ops/poly_filter.tc_smem_bytes), and a shape it takes keeps
-    the blocks on an SM its width states (two at 64, one at 128)."""
-    smem, per_sm = k5.tc_plan(k, p)
-    assert smem == k5.tc_smem_bytes(k, p)
-    if smem:
-        assert per_sm >= k5.BLOCKS_PER_SM[k5.tc_width(p)]
-    else:
-        assert per_sm == 0
+    """The kernel library's plan of K5's tensor-core design, with bf16
+    operands and in split TF32, equals the wrapper's
+    (ops/poly_filter.tc_smem_bytes), and a shape it takes keeps the blocks
+    on an SM its width states (two at 64, one at 128)."""
+    assert k5.tc_plan(k, p) == k5.tc_plan(k, p, True)
+    for rnd in (True, False):
+        smem, per_sm = k5.tc_plan(k, p, rnd)
+        assert smem == k5.tc_smem_bytes(k, p, rnd)
+        if smem:
+            assert per_sm >= k5.BLOCKS_PER_SM[k5.tc_width(p)]
+        else:
+            assert per_sm == 0
 
 
 @pytest.mark.cuda

@@ -44,14 +44,17 @@ SIGNATURES = {
                              _F, _F, _F, _F, _F, _P], _I),
     "vnlb_econ_filter_tc_plan": ([_I, _I, _P, _P], _I),
     "vnlb_econ_filter_tcw": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
-                              _F, _F, _F, _F, _F, _P], _I),
-    "vnlb_econ_filter_tcw_plan": ([_I, _I, _P, _P], _I),
+                              _F, _F, _F, _F, _F, _I, _P], _I),
+    "vnlb_econ_filter_tcw_plan": ([_I, _I, _I, _P, _P], _I),
+    "vnlb_econ_filter_tcg": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                              _P, _F, _F, _F, _F, _F, _I, _P], _I),
+    "vnlb_econ_filter_tcg_plan": ([_I, _I, _I, _P, _P], _I),
     "vnlb_poly_filter": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                           _F, _F, _F, _F, _F, _F, _I, _P, _P], _I),
     "vnlb_poly_filter_ws": ([_I, _I, _I], ctypes.c_longlong),
     "vnlb_poly_filter_tc": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                             _F, _F, _F, _F, _F, _F, _P], _I),
-    "vnlb_poly_filter_tc_plan": ([_I, _I, _P, _P], _I),
+                             _F, _F, _F, _F, _F, _F, _I, _P], _I),
+    "vnlb_poly_filter_tc_plan": ([_I, _I, _I, _P, _P], _I),
     "vnlb_patch_gather": ([_P, _P, _I, _I, _I, _I, _P, ctypes.c_longlong,
                            _I, _I, _I, _P, _P, _P], _I),
     "vnlb_dense_dist": ([_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],

@@ -26,7 +26,7 @@
 //
 // What bounds it on the H100: arithmetic.  A stage-1 group (K=60, p=98)
 // reads and writes 3 x 23.5 KB and does ~2.8 M multiply-adds, ~40 FMAs per
-// byte; the chain is seven dependent q x q products.  Three designs
+// byte; the chain is seven dependent q x q products.  Four designs
 // (ops/econ_filter.py `design`):
 //
 // The tensor-core design (`econ_tc_kernel`, econ_tc.cuh at width 64) takes
@@ -43,35 +43,39 @@
 // are ~25% of a Gram group's multiply-adds and set its operation bound.
 // One barrier per chain step.
 //
-// The wide tensor-core design (`econ_tcw_kernel`, width 128, its note
-// below) takes the matrix route's groups with 64 < q <= 128 under
-// poly_bf16 whose buffers fit one block per SM: the pt=2 first pass of
-// presets `default` and `sss`, (100, 98).
+// The wide tensor-core design (`econ_tcw_kernel<W, Op>`, its note below)
+// takes the matrix route's other groups with q <= 128 whose buffers fit:
+// under poly_bf16 64 < q (the pt=2 first pass of presets `default` and
+// `sss`, (100, 98)), without it every q (width 64 for (100, 49), 128 for
+// (100, 98)).
+//
+// The streamed Gram route (`econ_tcg_kernel<W, Op>`, its note below) takes
+// the Gram route's other groups with K <= 128: `couple_channels`' joint
+// groups (p = 3 x 49 or 3 x 98, whose p rows of xc^T the width-64 design
+// cannot hold) and, without poly_bf16, (60, 98).
+//
+// Without poly_bf16 both run every product with f32 operands in split
+// TF32 (econ_tc.cuh `OpTf32`: three TF32 mma of operands split in
+// registers into big + small, f32 accumulation), the same chain as under
+// poly_bf16 on f32 operand buffers; the bf16 instantiations are the
+// designs they were.
 //
 // The shared-memory design (`econ_filter_kernel`, group_mm.cuh) takes
-// every other shape (poly_bf16 off, Gram groups with q > 64, groups beyond
-// the tensor-core designs' shared memory): the group's two patch blocks
-// and seven q x q f32 matrices in shared memory when they fit (~148 KB at
-// stage 1, ~106 KB at stage 0 of the iphone preset), the products on CUDA
-// cores with a 2x2 tile of outputs per thread, operands rounded to bf16 in
-// registers.
-//
-// Groups beyond shared memory: the shared-memory design's groups of the
-// pt=2 first pass without poly_bf16 (K=100, p=98: 347 KB) and of
-// `couple_channels` (p = 3 x 49 or 3 x 98; up to 515 KB) do not fit the
-// 227 KB a block may use.  Of the two layouts that keep the arithmetic as
-// it is, the shared-memory design takes the one that changes no cast
-// point: the buffers are placed by priority (group_mm.cuh
-// `plan_slots`), the most-read q x q matrices first, the patch blocks
-// last; a matrix that does not fit lives in the block's slice of a
-// workspace in device memory, and a patch block that does not fit is read
-// in place from the input.  The spilled matrices are the Clenshaw state
-// and T_3, each touched once per chain step, and the patch blocks are read
-// by one product each.  A spilling launch runs a persistent grid of one
-// block per resident slot (132 at one block per SM), so the workspace is
-// 132 x 2 q^2 floats (10 MB at q=98), which stays in L2; storing matrices
-// in bf16 instead would not make room (seven f32 q x q at q=98 are
-// already 269 KB, and A and T_3 are read in f32 by the Clenshaw sums).
+// every other shape (Gram groups with K > 128, groups beyond the
+// tensor-core designs' shared memory) and is the comparison the card's
+// checks time beside each tensor-core design (`smem_design`): the group's
+// two patch blocks and seven q x q f32 matrices in shared memory when they
+// fit, the products on CUDA cores with a 2x2 tile of outputs per thread,
+// operands rounded to bf16 in registers.  Groups beyond shared memory
+// (up to 515 KB at couple_channels' (100, 294)) place their buffers by
+// priority (group_mm.cuh `plan_slots`), the most-read q x q matrices
+// first, the patch blocks last; a matrix that does not fit lives in the
+// block's slice of a workspace in device memory, and a patch block that
+// does not fit is read in place from the input.  A spilling launch runs a
+// persistent grid of one block per resident slot, so the workspace is
+// (blocks x spilled floats) and stays in L2.
+
+#include <type_traits>
 
 #include "econ_tc.cuh"
 #include "group_mm.cuh"
@@ -607,86 +611,106 @@ int tc_grid(int G, int smem, int* grid, int* per_sm) {
                             G, grid, per_sm);
 }
 
-// ---- the wide tensor-core design (econ_tc.cuh at width 128) ----
+// ---- the wide tensor-core design ("tcw", econ_tc.cuh) ----
 //
-// The matrix route's groups with 64 < q = p <= 128 under poly_bf16 whose
-// buffers fit one block per SM (preset `default`'s and `sss`'s pt=2 first
-// pass, (100, 98); A, T_2 and T_3 in f32 leave room up to q = 104).  A block of 512 threads walks its groups; every chain
-// product and the application is a padded 128 x 128 bf16 mma.sync (32
-// f32 accumulators per thread).  Registers hold two f32 states, the
-// Clenshaw pair; A, T_2 and T_3, which every Clenshaw step reads in f32
-// for V_i, sit in shared memory as f32 q x q matrices at a row stride of
-// 8 mod 32 floats (`tcw_ldt`: the float2 reads of a half-warp meet no bank
-// twice); the operands are two bf16 buffers, B = T_s(A) and the Clenshaw
-// state (the chain's first products use them too).  Each Clenshaw product
-// adds hi B to (V_i - lo) / 2 in the accumulators and doubles it, so no
-// third state is held.  Phases share the shared memory: xc (f32) and the
-// covariance's scratch, then the chain, then bf16(xn) (read from device
-// memory at the end) over the Clenshaw buffer.
+// The matrix route's groups (K >= p) that the width-64 design does not
+// take.  Under poly_bf16, 64 < q = p <= 128 whose buffers fit one block
+// per SM (preset `default`'s and `sss`'s pt=2 first pass, (100, 98); A,
+// T_2 and T_3 in f32 leave room up to q = 104), at width W = 128.
+// Without poly_bf16, every q = p <= 128 whose buffers fit, in split TF32
+// (econ_tc.cuh `OpTf32`): width 64 (256 threads, two blocks per SM) for q
+// <= 64, the (100, 49) groups, and 128 for the (100, 98) groups, whose
+// f32 operand buffers hold round_up(q, 8) = 104 rows of 108 floats
+// (44,928 bytes), so the chain takes 212,160 bytes and the application
+// 215,616.  A block walks its groups; every chain product and the
+// application is a padded W x W mma.sync (bf16 operands, or three TF32
+// products of split f32 operands), f32 accumulation.  Registers hold two
+// f32 states, the Clenshaw pair; A, T_2 and T_3, which every Clenshaw
+// step reads in f32 for V_i, sit in shared memory as f32 q x q matrices at
+// a row stride of 8 mod 32 floats (`tcw_ldt`: the float2 reads of a
+// half-warp meet no bank twice); the operands are two buffers, B =
+// T_s(A) and the Clenshaw state (the chain's first products use them
+// too).  Each Clenshaw product adds hi B to (V_i - lo) / 2 in the
+// accumulators and doubles it, so no third state is held.  Phases share
+// the shared memory: xc (f32) and the covariance's scratch, then the
+// chain, then xn (bf16, or f32 in split TF32; read from device memory at
+// the end) over the Clenshaw buffer.
 constexpr int kTcwMax = 220 * 1024;
-constexpr int kTcwLdb = 128 + 8, kTcwLdk = 128 + 4;
 
 __host__ __device__ inline int tcw_ldt(int q) {
   return tc::round_up(q > 8 ? q - 8 : 0, 32) + 8;
 }
 
-// Dynamic shared memory of the wide design for (K, p) groups, or 0 when it
-// does not take them.  ops/econ_filter.py `tcw_smem_bytes` mirrors this.
-int tcw_smem(int K, int p) {
-  if (K < p || p <= tc::kQ || p > 128) return 0;
-  const long long tsz = (long long)p * tcw_ldt(p) * 4, buf = 128LL * kTcwLdb * 2;
-  long long n = (long long)K * kTcwLdk * 4 + 2LL * 128 * kTcwLdb * 4;
-  if (3 * tsz + 2 * buf > n) n = 3 * tsz + 2 * buf;
-  const long long app = 3 * tsz + buf + (long long)tc::round_up(K, 16) *
-                                            kTcwLdb * 2;
-  if (app > n) n = app;
-  return n <= kTcwMax ? (int)n : 0;
+// dynamic shared memory a block may use at a width: two blocks per SM at
+// 64, one at 128
+constexpr int tc_max(int W) { return W == 64 ? tc::kSmemMax : kTcwMax; }
+
+// bytes of one operand buffer of a q x q chain at width W, and of an
+// A-side (K, q) patch block (rows padded to 16)
+long long op_bytes(int W, bool f32, int q) {
+  return f32 ? 4LL * tc::OpTf32::elems(q) : 2LL * W * (W + 8);
+}
+long long block_bytes(int W, bool f32, int K, int q) {
+  return (long long)tc::round_up(K, 16) *
+         (f32 ? 4LL * (tc::round_up(q, 8) + 4) : 2LL * (W + 8));
 }
 
-__global__ void __launch_bounds__(tc::Width<128>::kThreads, 1)
-econ_tcw_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
-                float* __restrict__ out, int G, int K, int p, int m, int s,
-                int nodes, const float* __restrict__ xs,
-                const float* __restrict__ proj, float tau, float lub_floor,
-                float sb2, float s2, float cwg) {
-  constexpr int W = 128, NT = tc::Width<W>::kThreads, NW = NT / 32;
-  constexpr int LDB = kTcwLdb, LDK = kTcwLdk;
-  using FS = tc::Frag<W, W, NT>;
-  constexpr int N = FS::N;
-  extern __shared__ __align__(16) unsigned char smraw[];
-  __shared__ float fv[kMaxNodes];
-  __shared__ float gam[kMaxCoef];
-  __shared__ float scal[1];  // lub
-  __shared__ float rowpart[W / 32 * W];
-  __shared__ float diagv[W];
+// The wide design's width for (K, p) groups (0: not its shape).
+int tcw_width(int K, int p, bool f32) {
+  if (K < p || p < 1) return 0;
+  if (f32) return p <= 64 ? 64 : p <= 128 ? 128 : 0;
+  return p > tc::kQ && p <= 128 ? 128 : 0;
+}
 
-  const int q = p, ms = m * s, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int kt = (q + 15) / 16, ldt = tcw_ldt(q), tsz = q * ldt;
-  float* Xc = reinterpret_cast<float*>(smraw);
-  float* part = Xc + K * LDK;
-  float* TA = reinterpret_cast<float*>(smraw);  // A, T_2, T_3 (f32)
-  float* T2 = TA + tsz;
-  float* T3 = T2 + tsz;
-  bf16* bB = reinterpret_cast<bf16*>(T3 + tsz);  // B side: B = T_s(A)
-  bf16* bH = bB + W * LDB;                       // A side: the state
-  const FS ps;
-  const float invk = 1.f / (float)K;
+// Dynamic shared memory of the wide design for (K, p) groups, or 0 when it
+// does not take them: the largest of its phases (xc and the covariance's
+// scratch; A, T_2, T_3 and two operand buffers; the same, one buffer and
+// xn).  ops/econ_filter.py `tcw_smem_bytes` mirrors this.
+int tcw_smem(int K, int p, bool f32) {
+  const int W = tcw_width(K, p, f32);
+  if (W == 0) return 0;
+  const long long tsz = (long long)p * tcw_ldt(p) * 4,
+                  buf = op_bytes(W, f32, p);
+  long long n = (long long)K * (W + 4) * 4 + 2LL * W * (W + 8) * 4;
+  if (3 * tsz + 2 * buf > n) n = 3 * tsz + 2 * buf;
+  const long long app = 3 * tsz + buf + block_bytes(W, f32, K, p);
+  if (app > n) n = app;
+  return n <= tc_max(W) ? (int)n : 0;
+}
+
+// The wide design's chain, which the streamed Gram route shares: A, the
+// fragment of M / K (M the covariance or the Gram), becomes 2 M / (K lub)
+// - I; A, T_2 and T_3 go to TA, T2 = TA + q ldt, T3 = T2 + q ldt (f32, q
+// rows of ldt floats) for V_i, B = T_s(A) to bB (B side), the Clenshaw
+// state through bH (A side); F = sum_i T_i(B) V_i lands in lo.  gam (the
+// m x s econ coefficients) is read after the chain's first barrier; ends
+// with a barrier, after which every operand buffer and T_r is free.
+template <int W, class O>
+__device__ __forceinline__ void wide_chain(
+    float (&A)[tc::Frag<W, W, tc::Width<W>::kThreads>::N],
+    float (&lo)[tc::Frag<W, W, tc::Width<W>::kThreads>::N], float lub,
+    int q, int m, int s, const float* gam, float* TA, int ldt,
+    typename O::T* bB, typename O::T* bH, const O& op,
+    const tc::Frag<W, W, tc::Width<W>::kThreads>& ps) {
+  constexpr int NT = tc::Width<W>::kThreads;
+  constexpr int N = tc::Frag<W, W, NT>::N;
+  float* T2 = TA + q * ldt;
+  float* T3 = T2 + q * ldt;
 
   // elements i, i + 1 (one row, two columns) of a q x q f32 matrix
-  auto tget = [&](const float* T, int i) -> float2 {
+  auto tget = [&](const float* Tm, int i) -> float2 {
     const int r = ps.row(i), c = ps.col(i);
     if (r >= q || c >= q) return make_float2(0.f, 0.f);
-    if (c + 1 < q) return *reinterpret_cast<const float2*>(T + r * ldt + c);
-    return make_float2(T[r * ldt + c], 0.f);
+    if (c + 1 < q) return *reinterpret_cast<const float2*>(Tm + r * ldt + c);
+    return make_float2(Tm[r * ldt + c], 0.f);
   };
-  auto tput = [&](float* T, int i, float a, float b) {
+  auto tput = [&](float* Tm, int i, float a, float b) {
     const int r = ps.row(i), c = ps.col(i);
     if (r >= q || c >= q) return;
     if (c + 1 < q)
-      *reinterpret_cast<float2*>(T + r * ldt + c) = make_float2(a, b);
+      *reinterpret_cast<float2*>(Tm + r * ldt + c) = make_float2(a, b);
     else
-      T[r * ldt + c] = a;
+      Tm[r * ldt + c] = a;
   };
   // V_i = sum_r gam[i, r] T_r(A) at elements k, k + 1
   auto v_at = [&](int i, int k) -> float2 {
@@ -708,6 +732,139 @@ econ_tcw_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
     return make_float2(vx, vy);
   };
 
+  // A = M * (2 / lub) - I: f32 for V, an operand on both sides
+  float H[N];
+  const float sc = 2.f / lub;
+#pragma unroll
+  for (int k = 0; k < N; ++k) A[k] = A[k] * sc - tc::diag(ps, k, q);
+#pragma unroll
+  for (int k = 0; k < N; k += 2) tput(TA, k, A[k], A[k + 1]);
+  op.store_row(bH, ps, [&](int k) { return A[k]; });
+  op.store_colT(bB, ps, [&](int k) { return A[k]; });
+  __syncthreads();
+
+  // A^2 into H; then B = T_s(A) into bB, T_2 and T_3 into shared memory
+  op.template mma_frag<W, W, NT>(H, bH, op.rows, bB);
+  __syncthreads();
+  if (s == 2) {
+    op.store_colT(bB, ps,
+                  [&](int k) { return 2.f * H[k] - tc::diag(ps, k, q); });
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; k += 2)
+      tput(T2, k, 2.f * H[k] - tc::diag(ps, k, q),
+           2.f * H[k + 1] - tc::diag(ps, k + 1, q));
+    // st(4 A^2 - 3 I) st(A): T_3 (s = 4) or B (s = 3), into A
+    op.store_row(bH, ps, [&](int k) {
+      return 4.f * H[k] - 3.f * tc::diag(ps, k, q);
+    });
+    __syncthreads();
+    op.template mma_frag<W, W, NT>(A, bH, op.rows, bB);
+    __syncthreads();
+    if (s == 3) {
+      op.store_colT(bB, ps, [&](int k) { return A[k]; });
+    } else {
+#pragma unroll
+      for (int k = 0; k < N; k += 2) tput(T3, k, A[k], A[k + 1]);
+      // A^4 = st(A^2) st(A^2), B = 8 A^4 - 8 A^2 + I
+      op.store_row(bH, ps, [&](int k) { return H[k]; });
+      op.store_colT(bB, ps, [&](int k) { return H[k]; });
+      __syncthreads();
+      op.template mma_frag<W, W, NT>(A, bH, op.rows, bB);
+      __syncthreads();
+      op.store_colT(bB, ps, [&](int k) {
+        return 8.f * A[k] - 8.f * H[k] + tc::diag(ps, k, q);
+      });
+    }
+  }
+
+  // Clenshaw in B over i = m-1 .. 1 (the first step has hi = 0)
+  float hi[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) hi[k] = lo[k] = 0.f;
+  for (int i = m - 1; i >= 1; --i) {
+    if (i < m - 1) {
+      __syncthreads();  // the last product has read bH
+      op.store_row(bH, ps, [&](int k) { return hi[k]; });
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < N; k += 2) {
+        const float2 v = v_at(i, k);
+        lo[k] = 0.5f * (v.x - lo[k]);
+        lo[k + 1] = 0.5f * (v.y - lo[k + 1]);
+      }
+      // V_i + 2 hi B - lo
+      op.template mma_acc<W, W, NT>(lo, bH, op.rows, bB);
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        const float nw = 2.f * lo[k];
+        lo[k] = hi[k];
+        hi[k] = nw;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < N; k += 2) {
+        const float2 v = v_at(i, k);
+        hi[k] = v.x;
+        hi[k + 1] = v.y;
+      }
+    }
+  }
+  // F = V_0 + hi B - lo, into lo
+  if (m > 1) {
+    __syncthreads();
+    op.store_row(bH, ps, [&](int k) { return hi[k]; });
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < N; k += 2) {
+      const float2 v = v_at(0, k);
+      lo[k] = v.x - lo[k];
+      lo[k + 1] = v.y - lo[k + 1];
+    }
+    op.template mma_acc<W, W, NT>(lo, bH, op.rows, bB);
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; k += 2) {
+      const float2 v = v_at(0, k);
+      lo[k] = v.x;
+      lo[k + 1] = v.y;
+    }
+  }
+  __syncthreads();  // every operand and T_r has been read
+}
+
+template <int W, class O>
+__global__ void __launch_bounds__(tc::Width<W>::kThreads,
+                                  tc::Width<W>::kBlocks)
+econ_tcw_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
+                float* __restrict__ out, int G, int K, int p, int m, int s,
+                int nodes, const float* __restrict__ xs,
+                const float* __restrict__ proj, float tau, float lub_floor,
+                float sb2, float s2, float cwg) {
+  constexpr int NT = tc::Width<W>::kThreads, NW = NT / 32;
+  constexpr int LDK = W + 4;
+  using FS = tc::Frag<W, W, NT>;
+  using T = typename O::T;
+  constexpr int N = FS::N;
+  extern __shared__ __align__(16) unsigned char smraw[];
+  __shared__ float fv[kMaxNodes];
+  __shared__ float gam[kMaxCoef];
+  __shared__ float scal[1];  // lub
+  __shared__ float rowpart[W / 32 * W];
+  __shared__ float diagv[W];
+
+  const int q = p, ms = m * s, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int ldt = tcw_ldt(q), tsz = q * ldt;
+  const O op(q);
+  float* Xc = reinterpret_cast<float*>(smraw);
+  float* part = Xc + K * LDK;
+  float* TA = reinterpret_cast<float*>(smraw);  // A, T_2, T_3 (f32)
+  T* bB = reinterpret_cast<T*>(TA + 3 * tsz);   // B side: B = T_s(A)
+  T* bH = bB + O::elems(q);                     // A side: the state
+  const FS ps;
+  const float invk = 1.f / (float)K;
+
   for (int grp = blockIdx.x; grp < G; grp += gridDim.x) {
     const size_t base = (size_t)grp * K * p;
     tc::load_padded<W, NT>(xc + base, K, K, p, [&](int r, int c, float v) {
@@ -716,7 +873,7 @@ econ_tcw_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
     __syncthreads();
 
     // covariance, f32 operands, and lub
-    float A[N], H[N];
+    float A[N];
     tc::syrk<W, W, NT>(A, Xc, LDK, Xc, LDK, K, part, ps);
 #pragma unroll
     for (int k = 0; k < N; ++k) A[k] *= invk;
@@ -741,109 +898,15 @@ econ_tcw_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
       if (lane == 0) gam[j] = acc;
     }
 
-    // A = M * (2 / lub) - I: f32 for V, bf16 on both sides
-    const float sc = 2.f / lub;
-#pragma unroll
-    for (int k = 0; k < N; ++k) A[k] = A[k] * sc - tc::diag(ps, k, q);
-#pragma unroll
-    for (int k = 0; k < N; k += 2) tput(TA, k, A[k], A[k + 1]);
-    tc::store_row(bH, LDB, ps, [&](int k) { return A[k]; });
-    tc::store_colT(bB, LDB, ps, [&](int k) { return A[k]; });
-    __syncthreads();
+    // the chain: F into lo
+    float lo[N];
+    wide_chain<W, O>(A, lo, lub, q, m, s, gam, TA, ldt, bB, bH, op, ps);
 
-    // A^2 into H; then B = T_s(A) into bB, T_2 and T_3 into shared memory
-    tc::mma_frag<W, W, NT>(H, bH, bB, LDB, kt);
-    __syncthreads();
-    if (s == 2) {
-      tc::store_colT(bB, LDB, ps,
-                     [&](int k) { return 2.f * H[k] - tc::diag(ps, k, q); });
-    } else {
-#pragma unroll
-      for (int k = 0; k < N; k += 2)
-        tput(T2, k, 2.f * H[k] - tc::diag(ps, k, q),
-             2.f * H[k + 1] - tc::diag(ps, k + 1, q));
-      // st(4 A^2 - 3 I) st(A): T_3 (s = 4) or B (s = 3), into A
-      tc::store_row(bH, LDB, ps, [&](int k) {
-        return 4.f * H[k] - 3.f * tc::diag(ps, k, q);
-      });
-      __syncthreads();
-      tc::mma_frag<W, W, NT>(A, bH, bB, LDB, kt);
-      __syncthreads();
-      if (s == 3) {
-        tc::store_colT(bB, LDB, ps, [&](int k) { return A[k]; });
-      } else {
-#pragma unroll
-        for (int k = 0; k < N; k += 2) tput(T3, k, A[k], A[k + 1]);
-        // A^4 = st(A^2) st(A^2), B = 8 A^4 - 8 A^2 + I
-        tc::store_row(bH, LDB, ps, [&](int k) { return H[k]; });
-        tc::store_colT(bB, LDB, ps, [&](int k) { return H[k]; });
-        __syncthreads();
-        tc::mma_frag<W, W, NT>(A, bH, bB, LDB, kt);
-        __syncthreads();
-        tc::store_colT(bB, LDB, ps, [&](int k) {
-          return 8.f * A[k] - 8.f * H[k] + tc::diag(ps, k, q);
-        });
-      }
-    }
-
-    // Clenshaw in B over i = m-1 .. 1 (the first step has hi = 0)
-    float hi[N], lo[N];
-#pragma unroll
-    for (int k = 0; k < N; ++k) hi[k] = lo[k] = 0.f;
-    for (int i = m - 1; i >= 1; --i) {
-      if (i < m - 1) {
-        __syncthreads();  // the last product has read bH
-        tc::store_row(bH, LDB, ps, [&](int k) { return hi[k]; });
-        __syncthreads();
-#pragma unroll
-        for (int k = 0; k < N; k += 2) {
-          const float2 v = v_at(i, k);
-          lo[k] = 0.5f * (v.x - lo[k]);
-          lo[k + 1] = 0.5f * (v.y - lo[k + 1]);
-        }
-        tc::mma_acc<W, W, NT>(lo, bH, bB, LDB, kt);  // V_i + 2 hi B - lo
-#pragma unroll
-        for (int k = 0; k < N; ++k) {
-          const float nw = 2.f * lo[k];
-          lo[k] = hi[k];
-          hi[k] = nw;
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < N; k += 2) {
-          const float2 v = v_at(i, k);
-          hi[k] = v.x;
-          hi[k + 1] = v.y;
-        }
-      }
-    }
-    // F = V_0 + hi B - lo, into lo
-    if (m > 1) {
-      __syncthreads();
-      tc::store_row(bH, LDB, ps, [&](int k) { return hi[k]; });
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < N; k += 2) {
-        const float2 v = v_at(0, k);
-        lo[k] = v.x - lo[k];
-        lo[k + 1] = v.y - lo[k + 1];
-      }
-      tc::mma_acc<W, W, NT>(lo, bH, bB, LDB, kt);
-    } else {
-#pragma unroll
-      for (int k = 0; k < N; k += 2) {
-        const float2 v = v_at(0, k);
-        lo[k] = v.x;
-        lo[k + 1] = v.y;
-      }
-    }
-    __syncthreads();  // every operand and T_r has been read
-
-    // out = st(xn) st(F): bf16(xn) over the state buffer, rows padded to 16
+    // out = st(xn) st(F): xn over the state buffer, rows padded to 16
     const int kpad = tc::round_up(K, 16);
-    tc::store_colT(bB, LDB, ps, [&](int k) { return lo[k]; });
+    op.store_colT(bB, ps, [&](int k) { return lo[k]; });
     tc::load_padded<W, NT>(xn + base, kpad, K, p, [&](int r, int c, float v) {
-      bH[r * LDB + c] = __float2bfloat16_rn(v);
+      op.put(bH, r, c, v);
     });
     __syncthreads();
     float* o = out + base;
@@ -854,11 +917,209 @@ econ_tcw_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
       const int cnt = min(un.nh, nt - n_lo);
       if (cnt <= 0) continue;
       float c[8][4] = {};
-      tc::mma_rows_acc(c, bH, 16 * mi, bB, 8 * n_lo, LDB, cnt, kt);
+      op.mma_rows(c, bH, kpad, 16 * mi, bB, 8 * n_lo, cnt);
       tc::apply_rows(o, K, p, 16 * mi, 8 * n_lo, cnt, c,
                      [&](int, int, float v) { return v; });
     }
     __syncthreads();  // the next group overwrites shared memory
+  }
+}
+
+// ---- the streamed Gram route ("tcg", econ_tc.cuh) ----
+//
+// Gram-route groups (q = K < p) with K <= 128 that the width-64 design
+// does not take: the joint groups of `couple_channels`, (100, 147), (60,
+// 294) and (100, 294), and without poly_bf16 every Gram group with K <=
+// 128, (60, 98) among them.  The chain is the wide design's (A, T_2, T_3
+// f32 in shared memory, the Clenshaw pair in registers, two operand
+// buffers, bf16 or split TF32) at width 64 (K <= 64: 256 threads, two
+// blocks per SM) or 128.  No product holds all p columns of a patch block:
+// the Gram xc xc^T / K, xn xc^T and the application out[:, chunk] = f0
+// xn[:, chunk] + st(t) st(xc[:, chunk]) 2 / (K lub) each stream the blocks
+// in chunks of kChunk = 32 columns through two cp.async stages
+// (econ_tc.cuh `chunk_copy`: chunk j + 1 is in flight while chunk j is
+// used), so shared memory does not grow with p: (100, 294) takes 194,432
+// bytes (bf16) or 214,656 (split TF32), (60, 294) 70,272 or 86,656.  The
+// Gram and xn xc^T take f32 operands on CUDA cores (`syrk_rows`, each
+// thread's sums over all chunks meeting once, `syrk_merge`), as
+// polyspec's cast points say; t = st(xn xc^T) st(F) and the application
+// run on tensor cores, the application's st(xc) rounded to bf16 from the
+// f32 stage in registers (or split, in TF32).  Layout (`tcg_layout`):
+// [the two stages of both blocks | syrk_merge's scratch | A, T_2, T_3,
+// whichever is largest] [B, the state: two operand buffers].
+struct TcgLayout {
+  int width, bytes, ops;  // ops: byte offset of the operand buffers
+};
+
+TcgLayout tcg_layout(int K, int p, bool f32) {
+  TcgLayout L = {0, 0, 0};
+  if (K >= p || K < 1 || K > 128) return L;
+  const int W = K <= 64 ? 64 : 128;
+  const long long stages = 2LL * 2 * tc::kChunk * (W + 4) * 4;
+  const long long merge =
+      4LL * (W == 64 ? tc::merge_floats<64, 64, 256>()
+                     : tc::merge_floats<128, 128, 512>());
+  const long long t3 = 3LL * K * tcw_ldt(K) * 4;
+  long long r0 = stages > merge ? stages : merge;
+  if (t3 > r0) r0 = t3;
+  const long long n = r0 + 2 * op_bytes(W, f32, K);
+  if (n > tc_max(W)) return L;
+  L.width = W;
+  L.bytes = (int)n;
+  L.ops = (int)r0;
+  return L;
+}
+
+template <int W, class O>
+__global__ void __launch_bounds__(tc::Width<W>::kThreads,
+                                  tc::Width<W>::kBlocks)
+econ_tcg_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
+                float* __restrict__ out, int G, int K, int p, int m, int s,
+                int nodes, const float* __restrict__ xs,
+                const float* __restrict__ proj, const float* __restrict__ v0,
+                float tau, float lub_floor, float sb2, float s2, float cwg,
+                int ops_off) {
+  constexpr int NT = tc::Width<W>::kThreads, NW = NT / 32;
+  constexpr int LDK = W + 4, CH = tc::kChunk;
+  constexpr bool kF32 = std::is_same<O, tc::OpTf32>::value;
+  using FS = tc::Frag<W, W, NT>;
+  using T = typename O::T;
+  constexpr int N = FS::N;
+  extern __shared__ __align__(16) unsigned char smraw[];
+  __shared__ float fv[kMaxNodes];
+  __shared__ float gam[kMaxCoef];
+  __shared__ float scal[2];  // lub, f0
+  __shared__ float rowpart[W / 32 * W];
+  __shared__ float diagv[W];
+
+  const int q = K, ms = m * s, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int ldt = tcw_ldt(q);
+  const int nch = (p + CH - 1) / CH;
+  const O op(q);
+  float* stage = reinterpret_cast<float*>(smraw);  // [2][xc, xn][CH][LDK]
+  float* part = stage;                             // syrk_merge's scratch
+  float* TA = stage;                               // A, T_2, T_3 (f32)
+  T* bB = reinterpret_cast<T*>(smraw + ops_off);  // B side
+  T* bH = bB + O::elems(q);                       // A side
+  const FS ps;
+  const float invk = 1.f / (float)K;
+
+  // use(j, xc chunk, xn chunk, columns) for the chunks of the group's
+  // blocks in order; xn is copied only when both is set.  Begins after a
+  // barrier's worth of quiet (the stages are free) and ends with one.
+  auto stream = [&](const float* a, const float* b, bool both, auto use) {
+    auto fetch = [&](int j) {
+      if (j < nch) {
+        const int c0 = j * CH, n = min(CH, p - c0);
+        float* st = stage + 2 * (j & 1) * CH * LDK;
+        tc::chunk_copy<W, NT>(st, LDK, a, K, p, c0, n);
+        if (both) tc::chunk_copy<W, NT>(st + CH * LDK, LDK, b, K, p, c0, n);
+      }
+      tc::cp_async_commit();  // an empty group past the last chunk
+    };
+    fetch(0);
+    for (int j = 0; j < nch; ++j) {
+      fetch(j + 1);
+      tc::cp_async_wait<1>();
+      __syncthreads();
+      const float* st = stage + 2 * (j & 1) * CH * LDK;
+      use(j, st, st + CH * LDK, min(CH, p - j * CH));
+      __syncthreads();  // before chunk j + 2 lands in this stage
+    }
+  };
+
+  for (int grp = blockIdx.x; grp < G; grp += gridDim.x) {
+    const size_t base = (size_t)grp * K * p;
+    const float* xcg = xc + base;
+    const float* xng = xn + base;
+
+    // Gram xc xc^T / K, f32 operands, streamed; and lub
+    float A[N], H[N];
+    {
+      float acc[8][8] = {};
+      stream(xcg, xng, false, [&](int, const float* c, const float*, int n) {
+        tc::syrk_rows<W, W, NT>(acc, c, LDK, c, LDK, n);
+      });
+      tc::syrk_merge<W, W, NT>(A, acc, part, ps);
+    }
+#pragma unroll
+    for (int k = 0; k < N; ++k) A[k] *= invk;
+    tc::frag_lub<W, NT>(A, ps, rowpart, diagv, lub_floor, &scal[0]);
+    const float lub = scal[0];
+
+    // transfer values at the scaled Chebyshev nodes, then gam and f0
+    for (int n = tid; n < nodes; n += NT) {
+      const float lam = (xs[n] + 1.f) * 0.5f * lub;
+      const float wg = cwg * sqrtf(tau * lub);
+      const float z = (lam - tau) / (wg / 4.4f);
+      const float gate = 1.f / (1.f + expf(-z));
+      const float lam_s = fmaxf(lam - sb2, 0.f);
+      fv[n] = gate * lam_s / (lam_s + s2);
+    }
+    __syncthreads();
+    for (int j = warp; j < ms + 1; j += NW) {
+      float acc = 0.f;
+      for (int n = lane; n < nodes; n += 32)
+        acc = fmaf(fv[n], j < ms ? proj[n * ms + j] : v0[n], acc);
+      acc = vnlb::warp_sum(acc);
+      if (lane == 0) (j < ms ? gam[j] : scal[1]) = acc;
+    }
+
+    // the chain: F into lo
+    float lo[N];
+    wide_chain<W, O>(A, lo, lub, q, m, s, gam, TA, ldt, bB, bH, op, ps);
+
+    // mh = xn xc^T (f32, streamed), t = st(mh) st(F)
+    op.store_colT(bB, ps, [&](int k) { return lo[k]; });
+    {
+      float acc[8][8] = {};
+      stream(xcg, xng, true,
+             [&](int, const float* c, const float* nn, int n) {
+               tc::syrk_rows<W, W, NT>(acc, nn, LDK, c, LDK, n);
+             });
+      tc::syrk_merge<W, W, NT>(H, acc, part, ps);
+    }
+    op.store_row(bH, ps, [&](int k) { return H[k]; });
+    __syncthreads();
+    op.template mma_frag<W, W, NT>(A, bH, op.rows, bB);
+    __syncthreads();
+    op.store_row(bH, ps, [&](int k) { return A[k]; });
+
+    // out[:, chunk] = f0 xn[:, chunk] + st(t) st(xc[:, chunk]) 2/(K lub),
+    // in rows of m16n8 tiles over the warps (streamed)
+    const float yscale = 2.f / ((float)K * lub), f0 = scal[1];
+    const int kpad = tc::round_up(K, 16), mt = kpad / 16;
+    const tc::Units un(mt, CH / 8, NW);
+    float* o = out + base;
+    stream(xcg, xng, true,
+           [&](int j, const float* c, const float* nn, int n) {
+      const int c0 = j * CH, nt = (n + 7) / 8;
+      for (int u = warp; u < mt * un.ns; u += NW) {
+        const int mi = u / un.ns, n_lo = (u - mi * un.ns) * un.nh;
+        const int cnt = min(un.nh, nt - n_lo);
+        if (cnt <= 0) continue;
+        float acc[8][4] = {};
+        if constexpr (kF32)
+          tc::mma_rows_x3(acc, bH, op.ld, op.rows, 16 * mi, c, LDK,
+                          8 * n_lo, cnt, op.kt8);
+        else
+          tc::mma_rows_bf16_f32b(acc, bH, O::ld, 16 * mi, c, LDK, 8 * n_lo,
+                                 cnt, kpad / 16);
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          if (jj >= cnt) break;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = 16 * mi + (lane >> 2) + 8 * (e >> 1);
+            const int col = 8 * (n_lo + jj) + 2 * (lane & 3) + (e & 1);
+            if (r < K && col < n)
+              o[r * p + c0 + col] =
+                  f0 * nn[col * LDK + r] + acc[jj][e] * yscale;
+          }
+        }
+      }
+    });
   }
 }
 
@@ -936,41 +1197,110 @@ extern "C" int vnlb_econ_filter_tc(const float* xc, const float* xn,
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of the wide tensor-core design for (K, p) groups
-// and the blocks it keeps on one SM (both 0 when it does not take them);
-// returns a cudaError_t.
-extern "C" int vnlb_econ_filter_tcw_plan(int K, int p, int* smem,
-                                         int* per_sm) {
-  *smem = tcw_smem(K, p);
-  *per_sm = 0;
-  if (*smem == 0) return 0;
-  int grid = 0;
-  return tc::occupancy_grid((const void*)econ_tcw_kernel,
-                            tc::Width<128>::kThreads, *smem, 1, &grid,
-                            per_sm);
+namespace {
+
+// The wide design's and the streamed Gram route's kernels: bf16 operands
+// (rnd) or split TF32, at width 64 or 128 (each design's instantiations
+// share one signature).
+using TcwKernel = decltype(&econ_tcw_kernel<128, tc::OpBf16<128>>);
+using TcgKernel = decltype(&econ_tcg_kernel<128, tc::OpBf16<128>>);
+
+TcwKernel tcw_kernel(int W, bool f32) {
+  if (!f32) return &econ_tcw_kernel<128, tc::OpBf16<128>>;
+  return W == 64 ? &econ_tcw_kernel<64, tc::OpTf32>
+                 : &econ_tcw_kernel<128, tc::OpTf32>;
+}
+TcgKernel tcg_kernel(int W, bool f32) {
+  if (W == 64)
+    return f32 ? &econ_tcg_kernel<64, tc::OpTf32>
+               : &econ_tcg_kernel<64, tc::OpBf16<64>>;
+  return f32 ? &econ_tcg_kernel<128, tc::OpTf32>
+             : &econ_tcg_kernel<128, tc::OpBf16<128>>;
+}
+int threads_of(int W) {
+  return W == 64 ? tc::Width<64>::kThreads : tc::Width<128>::kThreads;
 }
 
-// The wide tensor-core design on (G, K, p) matrix-route groups under
-// poly_bf16 (arguments as vnlb_econ_filter's, no v0);
-// cudaErrorInvalidValue for a shape it does not take.
+// (dynamic shared memory, blocks per SM) of a kernel, both 0 when smem is
+// 0 (the design does not take the shape); returns a cudaError_t
+int plan_of(const void* kernel, int W, int smem_, int* smem, int* per_sm) {
+  *smem = smem_;
+  *per_sm = 0;
+  if (smem_ == 0) return 0;
+  int grid = 0;
+  return tc::occupancy_grid(kernel, threads_of(W), smem_, 1, &grid, per_sm);
+}
+
+}  // namespace
+
+// Dynamic shared memory of the wide tensor-core design for (K, p) groups
+// (bf16 operands when rnd, else split TF32) and the blocks it keeps on one
+// SM (both 0 when it does not take them); returns a cudaError_t.
+extern "C" int vnlb_econ_filter_tcw_plan(int K, int p, int rnd, int* smem,
+                                         int* per_sm) {
+  const int W = tcw_width(K, p, !rnd);
+  return plan_of(W ? (const void*)tcw_kernel(W, !rnd) : nullptr, W,
+                 tcw_smem(K, p, !rnd), smem, per_sm);
+}
+
+// The wide tensor-core design on (G, K, p) matrix-route groups (arguments
+// as vnlb_econ_filter's, no v0); cudaErrorInvalidValue for a shape it
+// does not take.
 extern "C" int vnlb_econ_filter_tcw(const float* xc, const float* xn,
                                     float* out, int G, int K, int p, int m,
                                     int s, int nodes, const float* xs,
                                     const float* proj, float tau,
                                     float lub_floor, float sb2, float s2,
-                                    float cwg, void* stream) {
+                                    float cwg, int rnd, void* stream) {
   if (G <= 0) return 0;
-  const int smem = tcw_smem(K, p);
+  const bool f32 = !rnd;
+  const int smem = tcw_smem(K, p, f32), W = tcw_width(K, p, f32);
   if (smem == 0 || nodes > kMaxNodes || m * s > kMaxCoef || s < 2 || s > 4)
     return (int)cudaErrorInvalidValue;
+  const TcwKernel kernel = tcw_kernel(W, f32);
   int grid = 0;
-  const int err = tc::occupancy_grid((const void*)econ_tcw_kernel,
-                                     tc::Width<128>::kThreads, smem, G,
-                                     &grid, nullptr);
+  const int err = tc::occupancy_grid((const void*)kernel, threads_of(W),
+                                     smem, G, &grid, nullptr);
   if (err != 0) return err;
-  econ_tcw_kernel<<<grid, tc::Width<128>::kThreads, smem,
-                    (cudaStream_t)stream>>>(xc, xn, out, G, K, p, m, s,
-                                            nodes, xs, proj, tau, lub_floor,
-                                            sb2, s2, cwg);
+  kernel<<<grid, threads_of(W), smem, (cudaStream_t)stream>>>(
+      xc, xn, out, G, K, p, m, s, nodes, xs, proj, tau, lub_floor, sb2, s2,
+      cwg);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of the streamed Gram route for (K, p) groups
+// (bf16 operands when rnd, else split TF32) and the blocks it keeps on one
+// SM (both 0 when it does not take them); returns a cudaError_t.
+extern "C" int vnlb_econ_filter_tcg_plan(int K, int p, int rnd, int* smem,
+                                         int* per_sm) {
+  const TcgLayout L = tcg_layout(K, p, !rnd);
+  return plan_of(L.width ? (const void*)tcg_kernel(L.width, !rnd) : nullptr,
+                 L.width, L.bytes, smem, per_sm);
+}
+
+// The streamed Gram route on (G, K, p) groups with K < p (arguments as
+// vnlb_econ_filter's, with v0); cudaErrorInvalidValue for a shape it does
+// not take.
+extern "C" int vnlb_econ_filter_tcg(const float* xc, const float* xn,
+                                    float* out, int G, int K, int p, int m,
+                                    int s, int nodes, const float* xs,
+                                    const float* proj, const float* v0,
+                                    float tau, float lub_floor, float sb2,
+                                    float s2, float cwg, int rnd,
+                                    void* stream) {
+  if (G <= 0) return 0;
+  const bool f32 = !rnd;
+  const TcgLayout L = tcg_layout(K, p, f32);
+  if (L.width == 0 || v0 == nullptr || nodes > kMaxNodes ||
+      m * s > kMaxCoef || s < 2 || s > 4)
+    return (int)cudaErrorInvalidValue;
+  const TcgKernel kernel = tcg_kernel(L.width, f32);
+  int grid = 0;
+  const int err = tc::occupancy_grid((const void*)kernel, threads_of(L.width),
+                                     L.bytes, G, &grid, nullptr);
+  if (err != 0) return err;
+  kernel<<<grid, threads_of(L.width), L.bytes, (cudaStream_t)stream>>>(
+      xc, xn, out, G, K, p, m, s, nodes, xs, proj, v0, tau, lub_floor, sb2,
+      s2, cwg, L.ops);
   return (int)cudaGetLastError();
 }

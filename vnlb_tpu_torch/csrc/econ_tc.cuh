@@ -1,7 +1,17 @@
 // Tensor-core and register-tiled helpers of the filter kernels' Hopper
-// designs: K2 (econ_filter.cu, `econ_tc_kernel` at width 64 and
-// `econ_tcw_kernel` at width 128) and K5 (poly_filter.cu,
-// `poly_tc_kernel<W>`).  Included, never compiled alone.
+// designs: K2 (econ_filter.cu, `econ_tc_kernel` at width 64, the wide
+// design `econ_tcw_kernel<W, Op>` and the streamed Gram route
+// `econ_tcg_kernel<W, Op>` at width 64 or 128) and K5 (poly_filter.cu,
+// `poly_tc_kernel<W, Op>`).  Included, never compiled alone.
+//
+// Two operand modes (`OpBf16<W>`, `OpTf32`; a design's template
+// parameter): bf16 operands under poly_bf16, and without it f32 operands
+// in split TF32 (the section "split TF32" below: three TF32 mma of
+// operands split in registers, f32 buffers of round_up(q, 8) rows, f32
+// fragments loaded by ldmatrix).  The bf16 mode's calls are the helpers
+// the designs used before the f32 mode existed, in the same order.  The
+// streamed Gram route's helpers (`chunk_copy`, `syrk_rows`, `syrk_merge`)
+// bring a (K, p) block through two cp.async stages of 32 columns.
 //
 // The padded width W is a compile-time parameter: every q x q matrix of a
 // group is padded to W x W with a zero block (the padded matrices are
@@ -123,27 +133,19 @@ __device__ __forceinline__ float diag(const F& ps, int i, int q) {
   return (r == ps.col(i) && r < q) ? 1.f : 0.f;
 }
 
-// S = sum_k X[k][:] (x) Y[k][:] over k < depth into the fragment layout
-// (see the top of the file); X at a row stride of ldx floats (MR outputs
-// per row), Y at ldy (NC).  `part` (2 x MR x (NC + 8) floats) is free on
-// entry and on exit; ends with a barrier.
+// The thread's 8x8 block of a syrk (see the top of the file) accumulated
+// over its depth slice of rows 0 .. n-1 of X and Y: `syrk` calls it once,
+// the streamed Gram route once per chunk, so that the slices' sums of a
+// streamed product meet once, at the end (`syrk_merge`)
 template <int MR, int NC, int NT>
-__device__ __forceinline__ void syrk(float* S, const float* X, int ldx,
-                                     const float* Y, int ldy, int depth,
-                                     float* part,
-                                     const Frag<MR, NC, NT>& ps) {
+__device__ __forceinline__ void syrk_rows(float acc[8][8], const float* X,
+                                          int ldx, const float* Y, int ldy,
+                                          int n) {
   constexpr int TY = MR / 8, TX = NC / 8, NS = NT / (TX * TY);
-  constexpr int kLdp = NC + 8;
-  static_assert(NS == 2 || NS == 4, "depth slices");
   const int slice = threadIdx.x / (TX * TY), ty = (threadIdx.x / TX) % TY,
             tx = threadIdx.x % TX;
-  const int kq = (depth + NS - 1) / NS;
-  const int k1 = min(depth, (slice + 1) * kq);
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const int kq = (n + NS - 1) / NS;
+  const int k1 = min(n, (slice + 1) * kq);
   for (int k = slice * kq; k < k1; ++k) {
     const float4 x0 = *reinterpret_cast<const float4*>(X + k * ldx + 4 * ty);
     const float4 x1 =
@@ -158,6 +160,28 @@ __device__ __forceinline__ void syrk(float* S, const float* X, int ldx,
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xv[i], yv[j], acc[i][j]);
   }
+}
+
+// S = sum_k X[k][:] (x) Y[k][:] over k < depth into the fragment layout
+// (see the top of the file); X at a row stride of ldx floats (MR outputs
+// per row), Y at ldy (NC).  `part` (2 x MR x (NC + 8) floats) is free on
+// entry and on exit; ends with a barrier.
+template <int MR, int NC, int NT>
+__device__ __forceinline__ void syrk(float* S, const float* X, int ldx,
+                                     const float* Y, int ldy, int depth,
+                                     float* part,
+                                     const Frag<MR, NC, NT>& ps) {
+  constexpr int TY = MR / 8, TX = NC / 8, NS = NT / (TX * TY);
+  constexpr int kLdp = NC + 8;
+  static_assert(NS == 2 || NS == 4, "depth slices");
+  const int slice = threadIdx.x / (TX * TY), ty = (threadIdx.x / TX) % TY,
+            tx = threadIdx.x % TX;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  syrk_rows<MR, NC, NT>(acc, X, ldx, Y, ldy, depth);
   auto at = [&](int sl, int i, int j) -> float* {
     return part + sl * MR * kLdp +
            (4 * ty + (i & 3) + (MR / 2) * (i >> 2)) * kLdp + 4 * tx +
@@ -475,6 +499,401 @@ inline int occupancy_grid(const void* kernel, int threads, int smem, int G,
   *grid = (int)(slots < G ? slots : G);
   if (per_sm != nullptr) *per_sm = occ;
   return 0;
+}
+
+// ---- split TF32: the f32 mode of the tensor-core designs ----
+//
+// Without poly_bf16 every product takes f32 operands.  An operand x is
+// stored in shared memory as f32 and split in registers into big =
+// tf32(x) (cvt.rna) and small = tf32(x - big), so x = big + small to ~22
+// bits; a product is big.small + small.big + big.big, three TF32
+// mma.m16n8k8 with f32 accumulation (the small.small term, ~2^-22 of the
+// product, is dropped).  m16n8k8's accumulator layout is m16n8k16's, so
+// the fragments (`Frag`) are the same.  An f32 operand buffer holds a
+// padded q x q (or R x q) block at rows of ld = round_up(q, 8) + 4 floats
+// (an odd multiple of 4: the eight rows a fragment load reads fall on
+// distinct banks), rows past round_up(q, 8) unstored: a fragment row past
+// the buffer reads as zero and a tile wholly past it is skipped, which
+// is what the zero pad block would give.
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small (TF32 bit patterns)
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = tf32(x);
+  small = tf32(x - __uint_as_float(big));
+}
+
+// c += a (16x8, tf32) b (8x8, tf32), f32 accumulation (not volatile: the
+// compiler may move a step's shared loads ahead of the last step's mma)
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// term t of c += a b with both split: 0 big.small, 1 small.big, 2
+// big.big (small terms first); the three terms of a tile run in separate
+// sweeps over the tiles that share a B fragment, so consecutive mma feed
+// different accumulators
+__device__ __forceinline__ void mma_term(int t, float c[4],
+                                         const uint32_t ab[4],
+                                         const uint32_t as[4], uint32_t bb0,
+                                         uint32_t bb1, uint32_t bs0,
+                                         uint32_t bs1) {
+  if (t == 0)
+    mma_tf32(c, ab, bs0, bs1);
+  else if (t == 1)
+    mma_tf32(c, as, bb0, bb1);
+  else
+    mma_tf32(c, ab, bb0, bb1);
+}
+
+// f32 fragments by ldmatrix: an 8x8 b16 matrix is eight rows of four f32,
+// and ldmatrix hands lane l the word l % 4 of row l / 4 of each matrix,
+// which is where m16n8k8's tf32 fragments want them.  The split A fragment
+// of rows m0..m0+15, columns k0..k0+7 of a row-layout f32 buffer (one
+// ldmatrix.x4; rows at or past xrows read as zero, their addresses
+// clamped into the buffer).
+__device__ __forceinline__ void load_a_x3(uint32_t ab[4], uint32_t as[4],
+                                          const float* X, int ldx, int xrows,
+                                          int m0, int k0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2;
+  const int r = m0 + (lane & 7) + 8 * ((lane >> 3) & 1);
+  uint32_t u[4];
+  ldsm_x4(u, X + min(r, xrows - 1) * ldx + k0 + 4 * (lane >> 4));
+  const bool lo = m0 + g < xrows, hi = m0 + g + 8 < xrows;
+  split(lo ? __uint_as_float(u[0]) : 0.f, ab[0], as[0]);
+  split(hi ? __uint_as_float(u[1]) : 0.f, ab[1], as[1]);
+  split(lo ? __uint_as_float(u[2]) : 0.f, ab[2], as[2]);
+  split(hi ? __uint_as_float(u[3]) : 0.f, ab[3], as[3]);
+}
+
+// The split B fragments of column tiles n0..n0+7 and, when two,
+// n0+8..n0+15, depth k0..k0+7, of a B-side f32 buffer (Y^T: row n holds
+// column n of Y, k contiguous), by one ldmatrix.x4
+__device__ __forceinline__ void load_b2_x3(uint32_t bb[2][2],
+                                           uint32_t bs[2][2], const float* Yt,
+                                           int ldy, int n0, int k0,
+                                           bool two) {
+  const int lane = threadIdx.x & 31, m = lane >> 3;
+  const int n = n0 + (lane & 7) + (two ? 8 * (m >> 1) : 0);
+  uint32_t u[4];
+  ldsm_x4(u, Yt + n * ldy + k0 + 4 * (m & 1));
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    split(__uint_as_float(u[e]), bb[e >> 1][e & 1], bs[e >> 1][e & 1]);
+}
+
+// acc += X Y over the padded MR x NC block in split TF32: X in row layout
+// (rows past xrows zero), Y in B-side layout, k over kt8 8-wide steps;
+// column tiles at or past nlim are skipped (their B rows lie past the
+// buffer, and their Y columns are zero).  A step splits the warp's A
+// fragments once, then the B fragments two column tiles at a time (the
+// register budget of 128 a thread holds no more).
+template <int MR, int NC, int NT>
+__device__ __forceinline__ void mma_acc_x3(float* acc, const float* X,
+                                           int ldx, int xrows,
+                                           const float* Yt, int ldy, int kt8,
+                                           int nlim) {
+  using Fr = Frag<MR, NC, NT>;
+  const int m0 = Fr::m0(), n0 = Fr::n0();
+  for (int kt = 0; kt < kt8; ++kt) {
+    uint32_t ab[Fr::kMt][4], as[Fr::kMt][4];
+#pragma unroll
+    for (int mt = 0; mt < Fr::kMt; ++mt)
+      if (m0 + 16 * mt < xrows)
+        load_a_x3(ab[mt], as[mt], X, ldx, xrows, m0 + 16 * mt, 8 * kt);
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int n = n0 + 16 * jj;
+      if (n >= nlim) break;
+      const bool two = n + 8 < nlim;
+      uint32_t bb[2][2], bs[2][2];
+      load_b2_x3(bb, bs, Yt, ldy, n, 8 * kt, two);
+#pragma unroll
+      for (int t = 0; t < 3; ++t)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (h == 1 && !two) break;
+#pragma unroll
+          for (int mt = 0; mt < Fr::kMt; ++mt)
+            if (m0 + 16 * mt < xrows)
+              mma_term(t, acc + 16 * mt + 8 * jj + 4 * h, ab[mt], as[mt],
+                       bb[h][0], bb[h][1], bs[h][0], bs[h][1]);
+        }
+    }
+  }
+}
+
+// c[j] += X[m0..m0+15][:] Y[:][n0 + 8 j .. +7] for j < cnt (<= 8) in split
+// TF32 (mma_rows_acc's layout; X rows past xrows zero), kt8 8-wide steps
+__device__ __forceinline__ void mma_rows_x3(float c[8][4], const float* X,
+                                            int ldx, int xrows, int m0,
+                                            const float* Yt, int ldy, int n0,
+                                            int cnt, int kt8) {
+  for (int kt = 0; kt < kt8; ++kt) {
+    uint32_t ab[4], as[4];
+    load_a_x3(ab, as, X, ldx, xrows, m0, 8 * kt);
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+      if (j >= cnt) break;
+      const bool two = j + 1 < cnt;
+      uint32_t bb[2][2], bs[2][2];
+      load_b2_x3(bb, bs, Yt, ldy, n0 + 8 * j, 8 * kt, two);
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {
+        mma_term(t, c[j], ab, as, bb[0][0], bb[0][1], bs[0][0], bs[0][1]);
+        if (two)
+          mma_term(t, c[j + 1], ab, as, bb[1][0], bb[1][1], bs[1][0],
+                   bs[1][1]);
+      }
+    }
+  }
+}
+
+// c[j] += X[m0..m0+15][:] st(Y)[:][n0 + 8 j .. +7] for j < cnt: X a bf16
+// row-layout buffer (ldb), Y an f32 B-side buffer (ldy, even) rounded to
+// bf16 in registers, ktiles 16-wide steps
+__device__ __forceinline__ void mma_rows_bf16_f32b(
+    float c[8][4], const __nv_bfloat16* X, int ldb, int m0, const float* Yt,
+    int ldy, int n0, int cnt, int ktiles) {
+  const int lane = threadIdx.x & 31;
+  for (int kt = 0; kt < ktiles; ++kt) {
+    uint32_t a[4];
+    load_a(a, X, ldb, m0, 16 * kt);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j < cnt) {
+        const float* y = Yt + (n0 + 8 * j + (lane >> 2)) * ldy + 16 * kt +
+                         2 * (lane & 3);
+        const float2 lo = *reinterpret_cast<const float2*>(y);
+        const float2 hi = *reinterpret_cast<const float2*>(y + 8);
+        __nv_bfloat162 b0 = __floats2bfloat162_rn(lo.x, lo.y);
+        __nv_bfloat162 b1 = __floats2bfloat162_rn(hi.x, hi.y);
+        mma_bf16(c[j], a, *reinterpret_cast<uint32_t*>(&b0),
+                 *reinterpret_cast<uint32_t*>(&b1));
+      }
+    }
+  }
+}
+
+// Operand buffers of a design in one of its two modes, for a padded q x q
+// chain.  OpBf16<W>: bf16 at rows of W + 8, W rows, 16-wide k steps (the
+// mode under poly_bf16; its calls are the helpers above, unchanged).
+// OpTf32: f32 at rows of ld = round_up(q, 8) + 4, round_up(q, 8) rows,
+// split TF32.  `xrows` is the rows an A-side buffer holds (the padded
+// square's for the chain, round_up(K, 16) for a patch block).
+template <int W>
+struct OpBf16 {
+  using T = __nv_bfloat16;
+  static constexpr int ld = W + 8, rows = W;
+  int kt;  // 16-wide k steps over q
+  __device__ __forceinline__ explicit OpBf16(int q) : kt((q + 15) / 16) {}
+  static __host__ __device__ int elems(int /*q*/) { return W * ld; }
+  template <int MR, int NC, int NT, class F>
+  __device__ __forceinline__ void store_row(T* buf,
+                                            const Frag<MR, NC, NT>& ps,
+                                            F f) const {
+    tc::store_row(buf, ld, ps, f);
+  }
+  template <int MR, int NC, int NT, class F>
+  __device__ __forceinline__ void store_colT(T* buf,
+                                             const Frag<MR, NC, NT>& ps,
+                                             F f) const {
+    tc::store_colT(buf, ld, ps, f);
+  }
+  template <int MR, int NC, int NT>
+  __device__ __forceinline__ void mma_acc(float* acc, const T* X, int,
+                                          const T* Yt) const {
+    tc::mma_acc<MR, NC, NT>(acc, X, Yt, ld, kt);
+  }
+  template <int MR, int NC, int NT>
+  __device__ __forceinline__ void mma_frag(float* acc, const T* X, int xrows,
+                                           const T* Yt) const {
+#pragma unroll
+    for (int i = 0; i < Frag<MR, NC, NT>::N; ++i) acc[i] = 0.f;
+    mma_acc<MR, NC, NT>(acc, X, xrows, Yt);
+  }
+  __device__ __forceinline__ void mma_rows(float c[8][4], const T* X, int,
+                                           int m0, const T* Yt, int n0,
+                                           int cnt) const {
+    tc::mma_rows_acc(c, X, m0, Yt, n0, ld, cnt, kt);
+  }
+  __device__ __forceinline__ float get(const T* buf, int r, int c) const {
+    return __bfloat162float(buf[r * ld + c]);
+  }
+  __device__ __forceinline__ void put(T* buf, int r, int c, float v) const {
+    buf[r * ld + c] = __float2bfloat16_rn(v);
+  }
+};
+
+struct OpTf32 {
+  using T = float;
+  int rows, ld, kt8;
+  __device__ __forceinline__ explicit OpTf32(int q)
+      : rows(round_up(q, 8)), ld(round_up(q, 8) + 4), kt8(round_up(q, 8) / 8) {}
+  static __host__ __device__ int elems(int q) {
+    return round_up(q, 8) * (round_up(q, 8) + 4);
+  }
+  template <int MR, int NC, int NT, class F>
+  __device__ __forceinline__ void store_row(T* buf,
+                                            const Frag<MR, NC, NT>& ps,
+                                            F f) const {
+#pragma unroll
+    for (int i = 0; i < Frag<MR, NC, NT>::N; i += 2) {
+      const int r = ps.row(i), c = ps.col(i);
+      if (r < rows && c < rows)
+        *reinterpret_cast<float2*>(buf + r * ld + c) =
+            make_float2(f(i), f(i + 1));
+    }
+  }
+  template <int MR, int NC, int NT, class F>
+  __device__ __forceinline__ void store_colT(T* buf,
+                                             const Frag<MR, NC, NT>& ps,
+                                             F f) const {
+#pragma unroll
+    for (int i = 0; i < Frag<MR, NC, NT>::N; ++i) {
+      const int r = ps.row(i), c = ps.col(i);
+      if (r < rows && c < rows) buf[c * ld + r] = f(i);
+    }
+  }
+  template <int MR, int NC, int NT>
+  __device__ __forceinline__ void mma_acc(float* acc, const T* X, int xrows,
+                                          const T* Yt) const {
+    mma_acc_x3<MR, NC, NT>(acc, X, ld, xrows, Yt, ld, kt8, rows);
+  }
+  template <int MR, int NC, int NT>
+  __device__ __forceinline__ void mma_frag(float* acc, const T* X, int xrows,
+                                           const T* Yt) const {
+#pragma unroll
+    for (int i = 0; i < Frag<MR, NC, NT>::N; ++i) acc[i] = 0.f;
+    mma_acc<MR, NC, NT>(acc, X, xrows, Yt);
+  }
+  __device__ __forceinline__ void mma_rows(float c[8][4], const T* X,
+                                           int xrows, int m0, const T* Yt,
+                                           int n0, int cnt) const {
+    mma_rows_x3(c, X, ld, xrows, m0, Yt, ld, n0, cnt, kt8);
+  }
+  __device__ __forceinline__ float get(const T* buf, int r, int c) const {
+    return (r < rows && c < rows) ? buf[r * ld + c] : 0.f;
+  }
+  __device__ __forceinline__ void put(T* buf, int r, int c, float v) const {
+    if (c < rows) buf[r * ld + c] = v;
+  }
+};
+
+// ---- streaming a patch block through shared memory ----
+//
+// K2's streamed Gram route reads its (K, p) blocks in chunks of kChunk
+// columns: chunk j is copied transposed (row c holds column j kChunk + c,
+// K values, zero past K up to W) into one of two stages with 4-byte
+// cp.async, the next chunk's copy in flight while this one is used.
+
+constexpr int kChunk = 32;
+
+__device__ __forceinline__ void cp_async4(void* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Start the copy of columns c0 .. c0 + n - 1 of a (K, p) block into dst
+// (kChunk rows of ldk floats, transposed, zero past K up to W)
+template <int W, int NT>
+__device__ __forceinline__ void chunk_copy(float* dst, int ldk,
+                                           const float* src, int K, int p,
+                                           int c0, int n) {
+  for (int e = threadIdx.x; e < W * kChunk; e += NT) {
+    const int r = e / kChunk, c = e % kChunk;
+    const bool ok = r < K && c < n;
+    cp_async4(dst + c * ldk + r, ok ? src + r * p + c0 + c : src, ok);
+  }
+}
+
+// Shared floats syrk_merge needs: one MR x (NC + 8) area for two slices
+// (syrk's merge takes two: with one, the streamed Gram route's f32 mode
+// fits a width-128 block), two for four
+template <int MR, int NC, int NT>
+__host__ __device__ constexpr int merge_floats() {
+  return (NT / ((MR / 8) * (NC / 8)) == 4 ? 2 : 1) * MR * (NC + 8);
+}
+
+// S = the slices' sums of syrk_rows' blocks, in the fragment layout, in a
+// fixed order ((s0 + s2) + (s1 + s3) for four slices, s0 + s1 for two);
+// `part` (merge_floats) is free on entry (no thread still reads it) and
+// on exit; ends with a barrier
+template <int MR, int NC, int NT>
+__device__ __forceinline__ void syrk_merge(float* S, float acc[8][8],
+                                           float* part,
+                                           const Frag<MR, NC, NT>& ps) {
+  constexpr int TY = MR / 8, TX = NC / 8, NS = NT / (TX * TY);
+  constexpr int kLdp = NC + 8;
+  static_assert(NS == 2 || NS == 4, "depth slices");
+  const int slice = threadIdx.x / (TX * TY), ty = (threadIdx.x / TX) % TY,
+            tx = threadIdx.x % TX;
+  auto at = [&](int sl, int i, int j) -> float* {
+    return part + sl * MR * kLdp +
+           (4 * ty + (i & 3) + (MR / 2) * (i >> 2)) * kLdp + 4 * tx +
+           (NC / 2) * (j >> 2);
+  };
+  auto give = [&](int sl) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; j += 4)
+        *reinterpret_cast<float4*>(at(sl, i, j)) = make_float4(
+            acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
+  };
+  auto take = [&](int sl) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; j += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(at(sl, i, j));
+        acc[i][j] += v.x;
+        acc[i][j + 1] += v.y;
+        acc[i][j + 2] += v.z;
+        acc[i][j + 3] += v.w;
+      }
+  };
+  if constexpr (NS == 4) {
+    if (slice >= 2) give(slice - 2);
+    __syncthreads();
+    if (slice < 2) take(slice);
+    __syncthreads();
+  }
+  // slice 1's sum to slice 0, which writes the total
+  if (slice == 1) give(0);
+  __syncthreads();
+  if (slice == 0) {
+    take(0);
+    give(0);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < Frag<MR, NC, NT>::N; i += 2) {
+    const float2 a =
+        *reinterpret_cast<const float2*>(part + ps.row(i) * kLdp + ps.col(i));
+    S[i] = a.x;
+    S[i + 1] = a.y;
+  }
+  __syncthreads();
 }
 
 // ---- width 64 under the names K2's tensor-core kernel uses ----

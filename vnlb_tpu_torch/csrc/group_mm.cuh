@@ -1,6 +1,11 @@
 // Per-group matrix products and buffer placement shared by the filter
-// kernels (econ_filter.cu, K2, and poly_filter.cu, K5).  Included, never
-// compiled on its own.
+// kernels' shared-memory designs (econ_filter.cu `econ_filter_kernel`, K2,
+// and poly_filter.cu `poly_filter_kernel`, K5), and the helpers (rbf,
+// warp_sum, warp_max) their tensor-core designs (econ_tc.cuh) use too.
+// Included, never compiled on its own.  The shared-memory designs take the
+// shapes beyond the tensor-core designs (K2's Gram groups with K > 128,
+// K5's couple_channels groups, f32 groups whose buffers do not fit) and
+// are timed beside them on the card.
 //
 // A filter kernel runs one patch group per block: the group's two patch
 // blocks and a few square matrices.  `plan_slots` places those buffers:

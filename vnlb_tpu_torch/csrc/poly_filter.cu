@@ -28,37 +28,49 @@
 // a stage-0 group (K=100, p=49) ~3.2 M.  The gate is 15 dependent p x p
 // products.  Two designs (ops/poly_filter.py `design`):
 //
-// The tensor-core design (`poly_tc_kernel<W>`, econ_tc.cuh) takes every
-// shape under poly_bf16 with p <= 128 whose buffers fit (ops/poly_filter.py
+// The tensor-core design (`poly_tc_kernel<W, Op>`, econ_tc.cuh) takes every
+// shape with p <= 128 whose buffers fit (ops/poly_filter.py
 // `tc_smem_bytes`; the left route needs K <= 64): p is padded to W = 64
 // (256 threads, two blocks per SM: the right route's (100, 49)) or W = 128
 // (512 threads, one block per SM: the left route's (60, 98)).  Every p x p
-// product of the chain and of the applications is a padded W x W bf16
-// mma.sync with f32 accumulation; each operand goes to shared memory once,
-// rounded to bf16 when it is stored, which is polyspec's `st`, so the cast
-// points stay where they are.  The f32 state (the gate's S^3 and S^5, the
-// T_j pair, the z_j pair and their sum) lives in the accumulator registers
-// of the thread that computed it; the right route keeps Q in shared memory
-// (f32, per thread).  The covariance and the left route's z_0 = xn W take
-// f32 operands and run on CUDA cores (econ_tc.cuh `syrk`); the right
-// route's out = xn st(F) takes xn in f32 as three bf16 parts (hi + mid +
-// lo = xn exactly), three tensor-core products summed in f32.  The shared
+// product of the chain and of the applications is a padded W x W
+// mma.sync with f32 accumulation.  Under poly_bf16 (`OpBf16`) each operand
+// goes to shared memory once, rounded to bf16 when it is stored, which is
+// polyspec's `st`, so the cast points stay where they are.  Without it
+// (`OpTf32`) the operands are stored in f32 and every product is three
+// TF32 mma of operands split in registers (econ_tc.cuh); the f32 operand
+// buffers hold round_up(p, 8) rows of round_up(p, 8) + 4 floats, so the
+// gate's five at p = 98 take 5 x 104 x 108 x 4 = 224,640 of the 225,280
+// bytes a width-128 block is given (padded to 128 rows they would not
+// fit).  The f32 state (the gate's S^3 and S^5, the T_j pair, the z_j pair
+// and their sum) lives in the accumulator registers of the thread that
+// computed it; the right route keeps Q in shared memory (f32, per thread).
+// The covariance and the left route's z_0 = xn W take f32 operands and
+// run on CUDA cores (econ_tc.cuh `syrk`); the right route's out = xn st(F)
+// takes xn in f32, as three bf16 parts (hi + mid + lo = xn exactly),
+// three tensor-core products summed in f32, or in split TF32.  The shared
 // memory is time-shared by phase: the xc block and the covariance's
 // scratch, then the five gate buffers (Ah, S on both sides, S^2, S^3),
-// then the route's own (right: T_j on the B side twice, Q, then the three
-// parts of xn; left: xn^T, W in f32 and the xn W scratch, then z_j on the
-// A side twice), so xc is read at the start and xn once near the end.
-// Zero padding is exact for this function (vnlb_tpu/ops/pallas_poly.py:
-// 22-27): the pad block of every matrix stays zero and I is I_p.
+// then the route's own (right: T_j on the B side twice, Q, then xn; left:
+// xn^T, W in f32 and the xn W scratch, then z_j on the A side twice), so
+// xc is read at the start and xn once near the end.  Zero padding is
+// exact for this function (vnlb_tpu/ops/pallas_poly.py:22-27): the pad
+// block of every matrix stays zero and I is I_p.
 //
-// The shared-memory design (`poly_filter_kernel`) takes poly_bf16 off and
-// the joint groups of `couple_channels` (p = 147, 294): every product on
-// CUDA cores with the 2x2 register tiles of K2 (group_mm.cuh), with the
-// five p x p buffers (Ah, S / W and three products) and the patch blocks
-// placed in shared memory by priority.  The accumulator of either route
-// (Q, p x p <= K x p, or the K x p sum) lives in the group's own output
-// rows; p x p buffers beyond shared memory spill to a per-block workspace
-// under a persistent grid, as in K2.
+// The shared-memory design (`poly_filter_kernel`) takes what the
+// tensor-core design does not: the joint groups of `couple_channels` (p =
+// 147, 294), whose p x p gate chain needs five p x p f32 matrices (1.7 MB
+// at p = 294, beyond one SM), and the f32 shapes whose buffers do not
+// fit (the right route at p = 98, p = 128); and is the comparison the
+// card's checks time beside the tensor-core design (`smem_design`).  Every
+// product on CUDA cores with the 2x2 register tiles of K2 (group_mm.cuh),
+// with the five p x p buffers (Ah, S / W and three products) and the
+// patch blocks placed in shared memory by priority.  The accumulator of
+// either route (Q, p x p <= K x p, or the K x p sum) lives in the group's
+// own output rows; p x p buffers beyond shared memory spill to a
+// per-block workspace under a persistent grid, as in K2.
+
+#include <type_traits>
 
 #include "econ_tc.cuh"
 #include "group_mm.cuh"
@@ -269,17 +281,20 @@ __host__ __device__ inline long long lmax(long long a, long long b) {
 // does not take (K, p).  ops/poly_filter.py `tc_smem_bytes` mirrors
 // `bytes`.
 struct TcLayout {
-  int width, bytes;
+  int width, bytes, f32;
   int part1;             // the covariance's syrk scratch, after xc
   int xnt, wf, part3;    // left: xn^T, W (f32), the xn W syrk scratch
   int qs;                // right: Q, f32, one column per thread
 };
 
-__host__ __device__ inline TcLayout tc_layout(int K, int p) {
-  TcLayout L = {0, 0, 0, 0, 0, 0, 0};
+__host__ __device__ inline TcLayout tc_layout(int K, int p, bool f32) {
+  TcLayout L = {0, 0, 0, 0, 0, 0, 0, 0};
   const int W = p <= 64 ? 64 : p <= 128 ? 128 : 0;
   if (W == 0 || K < 1 || p < 1 || (K < p && K > 64)) return L;
-  const long long ldb = W + 8, ldk = W + 4, buf = W * ldb * 2;
+  // an operand buffer and a row of one: bf16 at W + 8, or f32 at ld
+  const long long ldb = W + 8, ldk = W + 4;
+  const long long row = f32 ? 4LL * (tc::round_up(p, 8) + 4) : 2 * ldb;
+  const long long buf = f32 ? 4LL * tc::OpTf32::elems(p) : W * ldb * 2;
   L.part1 = (int)(K * ldk * 4);
   long long n = lmax(L.part1 + 2LL * W * (W + 8) * 4, 5 * buf);
   if (K < p) {
@@ -287,18 +302,21 @@ __host__ __device__ inline TcLayout tc_layout(int K, int p) {
     L.wf = L.xnt + p * 68 * 4;
     L.part3 = (int)(L.wf + p * ldk * 4);
     n = lmax(n, L.part3 + 2LL * 64 * (W + 8) * 4);
+    n = lmax(n, buf + 2 * 64 * row);  // z_j on the A side by turns
   } else {
     L.qs = (int)(4 * buf);
     n = lmax(n, L.qs + (long long)W * W * 4);
-    n = lmax(n, buf + 3LL * tc::round_up(K, 16) * ldb * 2);
+    // xn: three bf16 parts, or f32
+    n = lmax(n, buf + (f32 ? 1 : 3) * tc::round_up(K, 16) * row);
   }
   if (n > (W == 64 ? kTcMax64 : kTcMax128)) return L;
   L.width = W;
   L.bytes = (int)n;
+  L.f32 = f32;
   return L;
 }
 
-template <int W>
+template <int W, class O>
 __global__ void __launch_bounds__(tc::Width<W>::kThreads,
                                   tc::Width<W>::kBlocks)
 poly_tc_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
@@ -308,9 +326,11 @@ poly_tc_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
                float tau, float sb2, float s2, float qa, float qb, float qc,
                TcLayout L) {
   constexpr int NT = tc::Width<W>::kThreads, NW = NT / 32;
-  constexpr int LDB = W + 8, LDK = W + 4, LDX = 64 + 4;
+  constexpr int LDK = W + 4, LDX = 64 + 4;
+  constexpr bool kF32 = std::is_same<O, tc::OpTf32>::value;
   using FS = tc::Frag<W, W, NT>;   // p x p matrices
   using FZ = tc::Frag<64, W, NT>;  // the left route's K x p states
+  using T = typename O::T;
   constexpr int NS = FS::N, NZ = FZ::N;
   extern __shared__ __align__(16) unsigned char smraw[];
   __shared__ float wv[kMaxNodes];
@@ -320,21 +340,23 @@ poly_tc_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
   __shared__ float diagv[W];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int kp = K * p, nc = wdeg + 1, kt = (p + 15) / 16;
+  const int kp = K * p, nc = wdeg + 1;
   const bool left = K < p;
+  const O op(p);
+  const int E = O::elems(p);  // elements of one operand buffer
   float* Xc = reinterpret_cast<float*>(smraw);
   float* part1 = reinterpret_cast<float*>(smraw + L.part1);
-  bf16* Ah = reinterpret_cast<bf16*>(smraw);  // A side (right), B (left)
-  bf16* S_row = Ah + W * LDB;
-  bf16* S_colT = S_row + W * LDB;
-  bf16* S2_row = S_colT + W * LDB;
-  bf16* S3_colT = S2_row + W * LDB;
+  T* Ah = reinterpret_cast<T*>(smraw);  // A side (right), B (left)
+  T* S_row = Ah + E;
+  T* S_colT = S_row + E;
+  T* S2_row = S_colT + E;
+  T* S3_colT = S2_row + E;
   const FS ps;
   const FZ pz;
   const float invk = 1.f / (float)K;
   // the thread's own element i of a row-layout buffer, as f32
-  auto own = [&](const bf16* buf, int i) {
-    return __bfloat162float(buf[ps.row(i) * LDB + ps.col(i)]);
+  auto own = [&](const T* buf, int i) {
+    return op.get(buf, ps.row(i), ps.col(i));
   };
 
   for (int grp = blockIdx.x; grp < G; grp += gridDim.x) {
@@ -380,42 +402,42 @@ poly_tc_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
       P[i] = (C[i] - tau * d) * rsc;
       R[i] = C[i] * rlub - d;
     }
-    tc::store_row(S_row, LDB, ps, [&](int i) { return P[i]; });
-    tc::store_colT(S_colT, LDB, ps, [&](int i) { return P[i]; });
+    op.store_row(S_row, ps, [&](int i) { return P[i]; });
+    op.store_colT(S_colT, ps, [&](int i) { return P[i]; });
     if (left)
-      tc::store_colT(Ah, LDB, ps, [&](int i) { return R[i]; });
+      op.store_colT(Ah, ps, [&](int i) { return R[i]; });
     else
-      tc::store_row(Ah, LDB, ps, [&](int i) { return R[i]; });
+      op.store_row(Ah, ps, [&](int i) { return R[i]; });
     __syncthreads();
 
     // matrix sign gate: quintic steps S2 = st(S S), S3 = S2 S,
     // S5 = S2 st(S3), S = st(a S + b S3 + c S5); then cubic polish steps
     // S = st(1.5 S - 0.5 S st(S S))
     for (int it = 0; it < n_aggr; ++it) {
-      tc::mma_frag<W, W, NT>(P, S_row, S_colT, LDB, kt);
-      tc::store_row(S2_row, LDB, ps, [&](int i) { return P[i]; });
+      op.template mma_frag<W, W, NT>(P, S_row, op.rows, S_colT);
+      op.store_row(S2_row, ps, [&](int i) { return P[i]; });
       __syncthreads();
-      tc::mma_frag<W, W, NT>(R, S2_row, S_colT, LDB, kt);
-      tc::store_colT(S3_colT, LDB, ps, [&](int i) { return R[i]; });
+      op.template mma_frag<W, W, NT>(R, S2_row, op.rows, S_colT);
+      op.store_colT(S3_colT, ps, [&](int i) { return R[i]; });
       __syncthreads();
-      tc::mma_frag<W, W, NT>(P, S2_row, S3_colT, LDB, kt);
+      op.template mma_frag<W, W, NT>(P, S2_row, op.rows, S3_colT);
 #pragma unroll
       for (int i = 0; i < NS; ++i)
         P[i] = qa * own(S_row, i) + qb * R[i] + qc * P[i];
-      tc::store_row(S_row, LDB, ps, [&](int i) { return P[i]; });
-      tc::store_colT(S_colT, LDB, ps, [&](int i) { return P[i]; });
+      op.store_row(S_row, ps, [&](int i) { return P[i]; });
+      op.store_colT(S_colT, ps, [&](int i) { return P[i]; });
       __syncthreads();
     }
     for (int it = 0; it < n_polish; ++it) {
-      tc::mma_frag<W, W, NT>(P, S_row, S_colT, LDB, kt);
-      tc::store_colT(S3_colT, LDB, ps, [&](int i) { return P[i]; });
+      op.template mma_frag<W, W, NT>(P, S_row, op.rows, S_colT);
+      op.store_colT(S3_colT, ps, [&](int i) { return P[i]; });
       __syncthreads();
-      tc::mma_frag<W, W, NT>(R, S_row, S3_colT, LDB, kt);
+      op.template mma_frag<W, W, NT>(R, S_row, op.rows, S3_colT);
 #pragma unroll
       for (int i = 0; i < NS; ++i) R[i] = 1.5f * own(S_row, i) - 0.5f * R[i];
       __syncthreads();  // every warp has read S_row
-      tc::store_row(S_row, LDB, ps, [&](int i) { return R[i]; });
-      tc::store_colT(S_colT, LDB, ps, [&](int i) { return R[i]; });
+      op.store_row(S_row, ps, [&](int i) { return R[i]; });
+      op.store_colT(S_colT, ps, [&](int i) { return R[i]; });
       __syncthreads();
     }
 
@@ -424,8 +446,8 @@ poly_tc_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
       // each product summed from -T_{j-2} / 2 and doubled; st(T) on the B
       // side in S_colT / S2_row by turns, Q in shared memory
       float* Qs = reinterpret_cast<float*>(smraw + L.qs);
-      bf16* tb0 = S_colT;
-      bf16* tb1 = S2_row;
+      T* tb0 = S_colT;
+      T* tb1 = S2_row;
       float tp[NS], tcur[NS];
 #pragma unroll
       for (int i = 0; i < NS; ++i) {
@@ -434,13 +456,13 @@ poly_tc_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
         tcur[i] = a;
         Qs[i * NT + tid] = coef[0] * d + coef[1] * a;
       }
-      tc::store_colT(tb0, LDB, ps, [&](int i) { return tcur[i]; });
+      op.store_colT(tb0, ps, [&](int i) { return tcur[i]; });
       __syncthreads();
-      bf16* tb = tb0;
+      T* tb = tb0;
       for (int j = 2; j <= wdeg; ++j) {
 #pragma unroll
         for (int i = 0; i < NS; ++i) tp[i] *= -0.5f;
-        tc::mma_acc<W, W, NT>(tp, Ah, tb, LDB, kt);
+        op.template mma_acc<W, W, NT>(tp, Ah, op.rows, tb);
         const float cj = coef[j];
 #pragma unroll
         for (int i = 0; i < NS; ++i) {
@@ -451,7 +473,7 @@ poly_tc_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
         }
         if (j < wdeg) {
           tb = tb == tb0 ? tb1 : tb0;
-          tc::store_colT(tb, LDB, ps, [&](int i) { return tcur[i]; });
+          op.store_colT(tb, ps, [&](int i) { return tcur[i]; });
           __syncthreads();
         }
       }
@@ -461,24 +483,29 @@ poly_tc_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
 #pragma unroll
       for (int i = 0; i < NS; ++i)
         tcur[i] = 0.5f * (own(S_row, i) + tc::diag(ps, i, p));
-      tc::store_row(S_row, LDB, ps, [&](int i) { return tcur[i]; });
-      tc::store_colT(tb0, LDB, ps, [&](int i) { return Qs[i * NT + tid]; });
+      op.store_row(S_row, ps, [&](int i) { return tcur[i]; });
+      op.store_colT(tb0, ps, [&](int i) { return Qs[i * NT + tid]; });
       __syncthreads();
-      tc::mma_frag<W, W, NT>(P, S_row, tb0, LDB, kt);
-      tc::store_colT(Ah, LDB, ps, [&](int i) { return P[i]; });
+      op.template mma_frag<W, W, NT>(P, S_row, op.rows, tb0);
+      op.store_colT(Ah, ps, [&](int i) { return P[i]; });
       __syncthreads();
-      // xn = hi + mid + lo exactly (three bf16 parts, rows padded to 16)
-      const int kpad = tc::round_up(K, 16), pstride = kpad * LDB;
-      bf16* parts = S_row;
+      // xn = hi + mid + lo exactly (three bf16 parts, rows padded to 16),
+      // or xn in f32 (split in registers)
+      const int kpad = tc::round_up(K, 16), pstride = kpad * op.ld;
+      T* parts = S_row;
       tc::load_padded<W, NT>(xn + base, kpad, K, p,
                              [&](int r, int c, float v) {
-        const bf16 h = __float2bfloat16_rn(v);
-        const float r1 = v - __bfloat162float(h);
-        const bf16 m = __float2bfloat16_rn(r1);
-        parts[r * LDB + c] = h;
-        parts[pstride + r * LDB + c] = m;
-        parts[2 * pstride + r * LDB + c] =
-            __float2bfloat16_rn(r1 - __bfloat162float(m));
+        if constexpr (kF32) {
+          op.put(parts, r, c, v);
+        } else {
+          const bf16 h = __float2bfloat16_rn(v);
+          const float r1 = v - __bfloat162float(h);
+          const bf16 m = __float2bfloat16_rn(r1);
+          parts[r * op.ld + c] = h;
+          parts[pstride + r * op.ld + c] = m;
+          parts[2 * pstride + r * op.ld + c] =
+              __float2bfloat16_rn(r1 - __bfloat162float(m));
+        }
       });
       __syncthreads();
       // out = xn st(F) in rows of m16n8 tiles over the warps
@@ -489,8 +516,11 @@ poly_tc_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
         const int cnt = min(un.nh, nt - n_lo);
         if (cnt <= 0) continue;
         float c[8][4] = {};
-        tc::mma_rows3(c, parts, pstride, 16 * mi, Ah, 8 * n_lo, LDB, cnt,
-                      kt);
+        if constexpr (kF32)
+          op.mma_rows(c, parts, kpad, 16 * mi, Ah, 8 * n_lo, cnt);
+        else
+          tc::mma_rows3(c, parts, pstride, 16 * mi, Ah, 8 * n_lo, op.ld, cnt,
+                        op.kt);
         tc::apply_rows(o, K, p, 16 * mi, 8 * n_lo, cnt, c,
                        [&](int, int, float v) { return v; });
       }
@@ -501,8 +531,8 @@ poly_tc_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
       float* XnT = reinterpret_cast<float*>(smraw + L.xnt);
       float* Wf = reinterpret_cast<float*>(smraw + L.wf);
       float* part3 = reinterpret_cast<float*>(smraw + L.part3);
-      bf16* zb0 = S_row;  // over xn^T once z_0 is done
-      bf16* zb1 = zb0 + 64 * LDB;
+      T* zb0 = S_row;  // over xn^T once z_0 is done
+      T* zb1 = zb0 + 64 * op.ld;
       float w[NS];
 #pragma unroll
       for (int i = 0; i < NS; ++i)
@@ -520,19 +550,19 @@ poly_tc_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
       __syncthreads();
       float zp[NZ], zc[NZ], acc[NZ];
       tc::syrk<64, W, NT>(zp, XnT, LDX, Wf, LDK, p, part3, pz);
-      tc::store_row(zb0, LDB, pz, [&](int i) { return zp[i]; });
+      op.store_row(zb0, pz, [&](int i) { return zp[i]; });
       __syncthreads();
-      tc::mma_frag<64, W, NT>(zc, zb0, Ah, LDB, kt);
+      op.template mma_frag<64, W, NT>(zc, zb0, op.rows, Ah);
 #pragma unroll
       for (int i = 0; i < NZ; ++i) acc[i] = coef[0] * zp[i] + coef[1] * zc[i];
-      bf16* zb = zb0;
+      T* zb = zb0;
       for (int j = 2; j <= wdeg; ++j) {
         zb = zb == zb0 ? zb1 : zb0;
-        tc::store_row(zb, LDB, pz, [&](int i) { return zc[i]; });
+        op.store_row(zb, pz, [&](int i) { return zc[i]; });
         __syncthreads();
 #pragma unroll
         for (int i = 0; i < NZ; ++i) zp[i] *= -0.5f;
-        tc::mma_acc<64, W, NT>(zp, zb, Ah, LDB, kt);
+        op.template mma_acc<64, W, NT>(zp, zb, op.rows, Ah);
         const float cj = coef[j];
 #pragma unroll
         for (int i = 0; i < NZ; ++i) {
@@ -552,9 +582,16 @@ poly_tc_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
   }
 }
 
-const void* tc_kernel(int width) {
-  return width == 64 ? (const void*)&poly_tc_kernel<64>
-                     : (const void*)&poly_tc_kernel<128>;
+// the tensor-core design's kernel at a width, bf16 operands or split TF32
+// (the instantiations share one signature)
+using TcKernel = decltype(&poly_tc_kernel<64, tc::OpBf16<64>>);
+
+TcKernel tc_kernel(int width, bool f32) {
+  if (f32)
+    return width == 64 ? &poly_tc_kernel<64, tc::OpTf32>
+                       : &poly_tc_kernel<128, tc::OpTf32>;
+  return width == 64 ? &poly_tc_kernel<64, tc::OpBf16<64>>
+                     : &poly_tc_kernel<128, tc::OpBf16<128>>;
 }
 
 }  // namespace
@@ -596,48 +633,45 @@ extern "C" int vnlb_poly_filter(const float* xc, const float* xn, float* out,
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of the tensor-core design for (K, p) groups and
-// the blocks it keeps on one SM (both 0: the design does not take them);
-// returns a cudaError_t.
-extern "C" int vnlb_poly_filter_tc_plan(int K, int p, int* smem,
+// Dynamic shared memory of the tensor-core design for (K, p) groups (bf16
+// operands when rnd, else split TF32) and the blocks it keeps on one SM
+// (both 0: the design does not take them); returns a cudaError_t.
+extern "C" int vnlb_poly_filter_tc_plan(int K, int p, int rnd, int* smem,
                                         int* per_sm) {
-  const TcLayout L = tc_layout(K, p);
+  const TcLayout L = tc_layout(K, p, !rnd);
   *smem = L.bytes;
   *per_sm = 0;
   if (L.width == 0) return 0;
   int grid = 0;
-  return tc::occupancy_grid(tc_kernel(L.width),
+  return tc::occupancy_grid((const void*)tc_kernel(L.width, !rnd),
                             L.width == 64 ? tc::Width<64>::kThreads
                                           : tc::Width<128>::kThreads,
                             L.bytes, 1, &grid, per_sm);
 }
 
-// The tensor-core design on (G, K, p) groups under poly_bf16 (arguments as
-// vnlb_poly_filter's); cudaErrorInvalidValue for a shape it does not take.
+// The tensor-core design on (G, K, p) groups, bf16 operands when rnd, else
+// split TF32 (arguments as vnlb_poly_filter's); cudaErrorInvalidValue for
+// a shape it does not take.
 extern "C" int vnlb_poly_filter_tc(const float* xc, const float* xn,
                                    float* out, int G, int K, int p,
                                    int n_aggr, int n_polish, int wdeg,
                                    int nodes, const float* xs,
                                    const float* dct, float tau, float sb2,
                                    float s2, float qa, float qb, float qc,
-                                   void* stream) {
+                                   int rnd, void* stream) {
   if (G <= 0) return 0;
-  const TcLayout L = tc_layout(K, p);
+  const TcLayout L = tc_layout(K, p, !rnd);
   if (L.width == 0 || nodes > kMaxNodes || wdeg + 1 > kMaxCoef || wdeg < 1)
     return (int)cudaErrorInvalidValue;
   const int threads = L.width == 64 ? tc::Width<64>::kThreads
                                     : tc::Width<128>::kThreads;
+  const TcKernel kernel = tc_kernel(L.width, !rnd);
   int grid = 0;
-  const int err = tc::occupancy_grid(tc_kernel(L.width), threads, L.bytes,
+  const int err = tc::occupancy_grid((const void*)kernel, threads, L.bytes,
                                      G, &grid, nullptr);
   if (err != 0) return err;
-  if (L.width == 64)
-    poly_tc_kernel<64><<<grid, threads, L.bytes, (cudaStream_t)stream>>>(
-        xc, xn, out, G, K, p, n_aggr, n_polish, wdeg, nodes, xs, dct, tau,
-        sb2, s2, qa, qb, qc, L);
-  else
-    poly_tc_kernel<128><<<grid, threads, L.bytes, (cudaStream_t)stream>>>(
-        xc, xn, out, G, K, p, n_aggr, n_polish, wdeg, nodes, xs, dct, tau,
-        sb2, s2, qa, qb, qc, L);
+  kernel<<<grid, threads, L.bytes, (cudaStream_t)stream>>>(
+      xc, xn, out, G, K, p, n_aggr, n_polish, wdeg, nodes, xs, dct, tau, sb2,
+      s2, qa, qb, qc, L);
   return (int)cudaGetLastError();
 }

@@ -7,13 +7,18 @@ the kernel, and a build or launch failure raises.  Nothing falls back.
 ``poly_filter.launches`` counts kernel launches.
 
 The kernel has two designs (``design``), each a CUDA kernel of its own:
-"tc", bf16 tensor cores for every p x p product of the gate, the Chebyshev
+"tc", tensor cores for every p x p product of the gate, the Chebyshev
 series and the applications, p padded to 64 (two blocks per SM) or to 128
-(one block per SM) by ``tc_width``, for every shape under ``poly_bf16``
-whose buffers fit (``tc_smem_bytes``; the left route, K < p, needs K <=
-64); "smem", the shared-memory design on CUDA cores, for ``poly_bf16``
-off and the joint groups of ``couple_channels`` (p = 147, 294).
-``poly_filter.by_design`` counts the launches of each.
+(one block per SM) by ``tc_width``, for every shape whose buffers fit
+(``tc_smem_bytes``; the left route, K < p, needs K <= 64): bf16 operands
+under ``poly_bf16``, and without it f32 operands as three TF32 products
+of split operands (csrc/econ_tc.cuh ``OpTf32``: the right route's (100,
+49) and the left route's (60, 98)); "smem", the shared-memory design on
+CUDA cores, for the rest: the joint groups of ``couple_channels`` (p =
+147, 294), whose p x p gate chain at p = 294 needs five 294 x 294 f32
+matrices (1.7 MB), beyond one SM, and f32 shapes whose buffers do not fit
+(the right route at p = 98, p = 128).  ``poly_filter.by_design`` counts
+the launches of each.
 """
 
 from __future__ import annotations
@@ -33,9 +38,11 @@ MAX_NODES = 128
 MAX_COEF = 64
 
 # the tensor-core design's layout (csrc/poly_filter.cu ``tc_layout``): at
-# width w, bf16 operand buffers of w rows at a stride of w + 8, f32
-# k-major rows of w + 4 floats (xn^T: 64 + 4), at most TC_SMEM_MAX[w] bytes
-# of dynamic shared memory, BLOCKS_PER_SM[w] blocks on one SM
+# width w, bf16 operand buffers of w rows at a stride of w + 8 (split
+# TF32: f32 buffers of round_up(p, 8) rows at a stride of round_up(p, 8) +
+# 4), f32 k-major rows of w + 4 floats (xn^T: 64 + 4), at most
+# TC_SMEM_MAX[w] bytes of dynamic shared memory, BLOCKS_PER_SM[w] blocks on
+# one SM
 TC_SMEM_MAX = {64: 104 * 1024, 128: 220 * 1024}
 BLOCKS_PER_SM = {64: 2, 128: 1}
 
@@ -49,39 +56,43 @@ def tc_width(p: int) -> int:
     return 64 if p <= 64 else 128 if p <= 128 else 0
 
 
-def tc_smem_bytes(k: int, p: int) -> int:
+def tc_smem_bytes(k: int, p: int, rnd: bool = True) -> int:
     """Dynamic shared memory of a tensor-core block for (k, p) groups, or
     0 when that design does not take them (csrc/poly_filter.cu
-    ``tc_layout``): the largest of its phases.  The covariance (xc and the
-    syrk scratch); the gate (five operand buffers); left route (k < p):
-    one buffer, xn^T, W in f32 and the xn W scratch; right route: four
-    buffers and Q (f32), then one buffer and the three bf16 parts of xn."""
+    ``tc_layout``; bf16 operands under ``rnd``, else split TF32): the
+    largest of its phases.  The covariance (xc and the syrk scratch); the
+    gate (five operand buffers); left route (k < p): one buffer, xn^T, W
+    in f32 and the xn W scratch, then z_j in two buffers of 64 rows; right
+    route: four buffers and Q (f32), then one buffer and xn (three bf16
+    parts, or f32)."""
     w = tc_width(p)
     if not w or k < 1 or p < 1 or (k < p and k > 64):
         return 0
-    ldb, ldk = w + 8, w + 4
-    buf = w * ldb * 2
+    ldb, ldk, r8 = w + 8, w + 4, _round_up(p, 8)
+    row = 2 * ldb if rnd else 4 * (r8 + 4)
+    buf = w * ldb * 2 if rnd else 4 * r8 * (r8 + 4)
     n = max(k * ldk * 4 + 2 * w * (w + 8) * 4, 5 * buf)
     if k < p:
-        n = max(n, buf + p * 68 * 4 + p * ldk * 4 + 2 * 64 * (w + 8) * 4)
+        n = max(n, buf + p * 68 * 4 + p * ldk * 4 + 2 * 64 * (w + 8) * 4,
+                buf + 2 * 64 * row)
     else:
         n = max(n, 4 * buf + w * w * 4,
-                buf + 3 * _round_up(k, 16) * ldb * 2)
+                buf + (3 if rnd else 1) * _round_up(k, 16) * row)
     return n if n <= TC_SMEM_MAX[w] else 0
 
 
 def design(k: int, p: int, rnd: bool) -> str:
     """Which design of the kernel takes (k, p) groups: "tc" or "smem"."""
-    return "tc" if rnd and tc_smem_bytes(k, p) else "smem"
+    return "tc" if tc_smem_bytes(k, p, rnd) else "smem"
 
 
-def tc_plan(k: int, p: int) -> tuple[int, int]:
-    """(dynamic shared memory, blocks per SM) of the tensor-core design on
-    the card, from the kernel library; (0, 0) for a shape it does not
-    take."""
+def tc_plan(k: int, p: int, rnd: bool = True) -> tuple[int, int]:
+    """(dynamic shared memory, blocks per SM) of the tensor-core design
+    (bf16 operands under ``rnd``, else split TF32) on the card, from the
+    kernel library; (0, 0) for a shape it does not take."""
     smem, per_sm = ctypes.c_int(0), ctypes.c_int(0)
     _build.check(_build.library().vnlb_poly_filter_tc_plan(
-        k, p, ctypes.byref(smem), ctypes.byref(per_sm)),
+        k, p, int(rnd), ctypes.byref(smem), ctypes.byref(per_sm)),
         "poly_filter tc plan")
     return smem.value, per_sm.value
 
@@ -119,7 +130,8 @@ def poly_filter_kernel(xc2: torch.Tensor, xn2: torch.Tensor, cfg,
     kind = "smem" if smem_design else design(k, p, pp["rnd"])
     if kind == "tc":
         err = lib.vnlb_poly_filter_tc(xc2.data_ptr(), xn2.data_ptr(),
-                                      out.data_ptr(), g, k, p, *args, stream)
+                                      out.data_ptr(), g, k, p, *args,
+                                      int(pp["rnd"]), stream)
     else:
         ws_n = int(lib.vnlb_poly_filter_ws(g, k, p))
         _build.check(max(-ws_n, 0), "poly_filter workspace plan")

@@ -20,7 +20,9 @@ the clip's own drift flow, the API default with ``poly_impl="pallas"``
 route on the joint (100, 147) and (60, 294) groups), without
 ``poly_bf16`` (K2's wide design and streamed Gram route in split TF32) and
 with ``poly_econ=False, poly_bf16=False`` (K5 in split TF32 in the first
-pass), the API default with
+pass), the API default with ``poly_impl="pallas", couple_channels=True``
+(K5's batched tensor-core design on the joint (100, 147) and (60, 294)
+groups of both passes), the API default with
 the all-rows dense search (``dense_rows="full"``: kernel K3) and the exact
 and the streaming top-K; then ``denoise_streaming`` of a 24x480x854 clip
 against the whole-clip ``denoise``, and ``denoise_pipelined`` with both
@@ -55,12 +57,13 @@ one pass with the kernels and both passes of a 3x48x48 clip (the
 oracle's semantics within 2e-3 mean relative error and 0.01 dB; K2's
 poly run within 0.1 dB of the jacobi run).  K2's and
 K5's lines name the design each group shape takes (tensor cores at width 64 or
-128, bf16 or split-TF32 operands, or shared memory), a tensor-core design's
-plan against its Python mirror and its stated blocks per SM, and the
-shared-memory design's time on the same inputs; each group shape's repeat
-run is bitwise equal; and
-every 480p run logs K1's and K2's device time and launches (CUDA events
-around each launch, in one extra run); the API default's K1 launches are
+128, bf16 or split-TF32 operands, K5's batched design, or shared memory), a
+tensor-core design's plan against its Python mirror and its stated blocks
+per SM (the batched design's padded sizes, tiles, sub-batch and
+workspace), and the shared-memory design's time on the same inputs; each
+group shape's repeat run is bitwise equal; and every 480p run logs K1's,
+K2's and K5's device time and launches (CUDA events around each launch,
+in one extra run); the API default's K1 launches are
 logged by shape (``k1_api_default``).  Every phase prints
 one line; any
 failure raises and the script exits nonzero.  The second-to-last line is the kernel table as JSON (each kernel's time, its
@@ -109,6 +112,11 @@ REF_SMALL_MODES = {
                     dict(basic=30.020913, deno=30.153355)),
     "couple_channels": (dict(couple_channels=True),
                         dict(basic=29.922595, deno=30.464622)),
+    # K5 on the joint groups (scripts/torch_cpu_parity.py small_couple:
+    # JAX's plain version, couple_channels with poly_econ and poly_fused
+    # off)
+    "poly_pallas_couple": (dict(poly_impl="pallas", couple_channels=True),
+                           dict(basic=30.007073, deno=30.161786)),
     # without poly_bf16 (scripts/torch_cpu_parity.py small_f32): K2 and K5
     # in split TF32 on the card
     "poly_bf16_off": (dict(poly_bf16=False),
@@ -313,42 +321,57 @@ def k1_api_phase(per, k1_shapes, api_cfg):
     log("k1_api_default_total", launches=total_n, device_ms=f"{total_ms:.2f}")
 
 
+def sym(q):
+    """Multiply-adds of a q x q product whose result is symmetric, over
+    those of the full product: the outputs on and above the diagonal."""
+    return (q + 1) / (2 * q)
+
+
 def econ_work(g, k, p, scfg):
     """(f32 flops, bf16-operand flops, bytes, split-TF32 flops) of K2 on g
-    groups of (k, p): the covariance or Gram (and xn xc^T) products take
+    groups of (k, p): the covariance or Gram (symmetric) and xn xc^T take
     f32 operands, the chain and the applications bf16-rounded ones (all f32
-    without poly_bf16, bounded as split TF32)."""
+    without poly_bf16); every f32 product is bounded as split TF32.
+    Without poly_bf16 the chain's products, polynomials in the symmetric
+    covariance or Gram, are symmetric too."""
     from vnlb_tpu_torch.ops.polyspec import econ_params
 
     ep = econ_params(scfg)
     chain = {4: 3, 3: 2, 2: 1}[ep["s"]] + ep["m"] - 1
+    q = k if k < p else p
+    f32 = k * k * p * (sym(k) + 1) if k < p else k * p * p * sym(p)
+    chain_q = chain * q ** 3 * (1 if ep["rnd"] else sym(q))
     if k < p:
-        f32, low = 2 * k * k * p, (chain + 1) * k ** 3 + k * k * p
+        low = chain_q + k ** 3 + k * k * p
     else:
-        f32, low = k * p * p, chain * p ** 3 + k * p * p
+        low = chain_q + k * p * p
     if not ep["rnd"]:
         return 0, 0, 3 * g * k * p * 4, 2 * g * (f32 + low)
-    return 2 * g * f32, 2 * g * low, 3 * g * k * p * 4, 0
+    return 0, 2 * g * low, 3 * g * k * p * 4, 2 * g * f32
 
 
 def poly_work(g, k, p, scfg):
     """(f32 flops, bf16-operand flops, bytes, split-TF32 flops) of K5 on g
-    groups of (k, p): the covariance and the xn-side product (xn W left,
-    xn F right) take f32 operands; the sign gate, the T_j products and F =
-    W Q bf16-rounded ones (all f32 without poly_bf16, bounded as split
-    TF32)."""
+    groups of (k, p): the covariance (symmetric) and the xn-side product
+    (xn W left, xn F right) take f32 operands; the sign gate, the T_j
+    products and F = W Q bf16-rounded ones (all f32 without poly_bf16);
+    every f32 product is bounded as split TF32.  Without poly_bf16 the
+    gate's products, T_j and F, polynomials in the symmetric covariance,
+    are symmetric too; under it st() breaks that (st(S^2) S is not
+    symmetric), so they count in full."""
     from vnlb_tpu_torch.ops.polyspec import poly_params
 
     pp = poly_params(scfg)
-    gate = (3 * pp["n_aggr"] + 2 * pp["n_polish"]) * p ** 3
-    f32 = 2 * k * p * p
+    s = 1 if pp["rnd"] else sym(p)
+    gate = (3 * pp["n_aggr"] + 2 * pp["n_polish"]) * p ** 3 * s
+    f32 = k * p * p * (sym(p) + 1)
     if k >= p:
-        low = gate + pp["wdeg"] * p ** 3
+        low = gate + pp["wdeg"] * p ** 3 * s
     else:
         low = gate + pp["wdeg"] * k * p * p
     if not pp["rnd"]:
         return 0, 0, 3 * g * k * p * 4, 2 * g * (f32 + low)
-    return 2 * g * f32, 2 * g * low, 3 * g * k * p * 4, 0
+    return 0, 2 * g * low, 3 * g * k * p * 4, 2 * g * f32
 
 
 def k3_work(vid, n_f, scfg):
@@ -380,10 +403,10 @@ def k3_launches(yuv, cfg):
 def e2e(vt, name, noisy, clean, dev, counters, expect, cfg=None,
         flows=None):
     """The main path at full size: one counted warmup run, best of 3 with a
-    bitwise repeat check, one run with CUDA events around each K1, K2 and
-    K3 launch, the output checks and the plain-version pass.  ``expect`` names
-    the counters that must launch (the others must not).  Returns
-    (launches, deno, basic, {(pt, C, level height, window starts): (K1
+    bitwise repeat check, one run with CUDA events around each K1, K2, K3
+    and K5 launch, the output checks and the plain-version pass.
+    ``expect`` names the counters that must launch (the others must not).
+    Returns (launches, deno, basic, {(pt, C, level height, window starts): (K1
     device ms, launches)} of the timed run)."""
     from vnlb_tpu_torch.utils.metrics import compute_psnr
 
@@ -425,7 +448,7 @@ def e2e(vt, name, noisy, clean, dev, counters, expect, cfg=None,
     if expect & {"econ_filter", "patch_dist"}:
         run_s, per = timed_run(vt, noisy_t, dev, cfg, flows)
         for kern, tag in (("econ_filter", "k2"), ("patch_dist", "k1"),
-                          ("dense_dist", "k3")):
+                          ("dense_dist", "k3"), ("poly_filter", "k5")):
             if kern not in expect:
                 continue
             ms = sum(v[0] for k, v in per.items() if k[0] == kern)
@@ -461,12 +484,14 @@ def e2e(vt, name, noisy, clean, dev, counters, expect, cfg=None,
 
 
 def timed_run(vt, noisy_t, dev, cfg, flows):
-    """One more run of a path with CUDA events around each K2, K1 and K3
-    launch: (wall seconds, {(kernel, *shape key): (device ms, launches)});
+    """One more run of a path with CUDA events around each K2, K1, K3 and
+    K5 launch: (wall seconds, {(kernel, *shape key): (device ms,
+    launches)});
     K1's key is (pt, C, level height, window starts given)."""
     from vnlb_tpu_torch.ops.dense_dist import dense_dist
     from vnlb_tpu_torch.ops.econ_filter import econ_filter
     from vnlb_tpu_torch.ops.patch_dist import patch_dist
+    from vnlb_tpu_torch.ops.poly_filter import poly_filter
 
     events = []
 
@@ -486,7 +511,8 @@ def timed_run(vt, noisy_t, dev, cfg, flows):
                           pt, ps, w_s, sy=None, sx=None: (
                               "patch_dist", pt, vid.shape[1], vid.shape[2],
                               sy is not None)),
-        dense_dist=timing(dense_dist, lambda *a, **kw: ("dense_dist",)))
+        dense_dist=timing(dense_dist, lambda *a, **kw: ("dense_dist",)),
+        poly_filter=timing(poly_filter, lambda *a, **kw: ("poly_filter",)))
     _, _, sec = vt.denoise(noisy_t, SIGMA, flows=flows, cfg=cfg, device=dev,
                            kernels=kernels)
     per = {}
@@ -1872,11 +1898,17 @@ def main():
         kms = cuda_ms(lambda: fn(xc, xn, scfg), reps)
         pms = cuda_ms(lambda: plain(xc, xn, scfg), reps)
         bms, by = bound(*work(g, k, p, scfg))
-        extra = {f"{key}_ms": f"{cuda_ms(lambda: f(xc, xn, scfg), reps):.3f}"
+        extra = {f"{key}_ms": cuda_ms(lambda: f(xc, xn, scfg), reps)
                  for key, f in (beside or {}).items()}
+        if extra:
+            # the design against the plain version and the designs beside
+            extra["faster_than_plain_and_beside"] = kms < min(
+                [pms, *extra.values()])
         log(tag, G=g, K=k, p=p, rms_over_scale=f"{rms:.3g}",
             kernel_ms=f"{kms:.3f}", plain_ms=f"{pms:.3f}",
-            bound_ms=f"{bms:.4f}", bound_by=by, **(tags or {}), **extra)
+            bound_ms=f"{bms:.4f}", bound_by=by, **(tags or {}),
+            **{key: f"{v:.3f}" if isinstance(v, float) else v
+               for key, v in extra.items()})
         return err, (kms, pms, (bms, by))
 
     k2_err = 0.0
@@ -1935,8 +1967,9 @@ def main():
     # route (stage 1, K=60 < p=98), at G=768 and at one chunk, on the
     # tensor-core design (the shared-memory design timed beside on the same
     # inputs), then the chunk without poly_bf16 (split TF32), then
-    # couple_channels' joint groups (the shared-memory design) at the
-    # chunk's 4096 sites ----
+    # couple_channels' joint groups at the chunk's 4096 sites on the
+    # batched design, bf16 and split TF32 (the shared-memory design beside)
+    # ----
     k5_err = 0.0
     k5_times, k5_errs = {}, {}
     k5_cases = [(g, name, scfg, scfg.npatches, scfg.pdim)
@@ -1947,7 +1980,11 @@ def main():
                  (3 * 4096, "left(s1) f32", a1.replace(poly_bf16=False),
                   60, 98),
                  (4096, "left(couple s0)", a0, 100, 147),
-                 (4096, "left(couple s1)", a1, 60, 294)]
+                 (4096, "left(couple s1)", a1, 60, 294),
+                 (4096, "left(couple s0) f32", a0.replace(poly_bf16=False),
+                  100, 147),
+                 (4096, "left(couple s1) f32", a1.replace(poly_bf16=False),
+                  60, 294)]
     for g, name, scfg, k, p in k5_cases:
         bf16 = scfg.poly_bf16
         kind = k5.design(k, p, bf16)
@@ -1957,6 +1994,19 @@ def main():
                            k5.tc_smem_bytes(k, p, bf16),
                            k5.BLOCKS_PER_SM[k5.tc_width(p)],
                            k5.tc_width(p), bf16)
+        elif kind == "tcb":
+            plan = k5.card_tcb_plan(g, k, p, bf16)
+            if plan != k5.tcb_plan(g, k, p, bf16):
+                raise AssertionError(f"k5 {name}: the library's plan {plan}"
+                                     f" is not the wrapper's "
+                                     f"{k5.tcb_plan(g, k, p, bf16)}")
+            tags = dict(design=kind,
+                        operands="bf16" if bf16 else "split_tf32",
+                        p_pad=plan["p_pad"], k_pad=plan["k_pad"],
+                        tiles=plan["tiles"], ztiles=plan["ztiles"],
+                        sub_batch=plan["batch"],
+                        ws_mib=f"{plan['ws_bytes'] / 2 ** 20:.1f}")
+        if kind != "smem":
             beside = {"smem_design": lambda a, b, c: k5.poly_filter_kernel(
                 a, b, c, smem_design=True)}
         err, k5_times[name, g] = filter_check(
@@ -2020,7 +2070,12 @@ def main():
              None),
             ("e2e_poly_econ_off_f32", k145,
              vt.default_config(SIGMA, poly_econ=False, poly_bf16=False),
-             None))
+             None),
+            # K5 on couple_channels' joint groups: the batched design in
+            # both passes
+            ("e2e_poly_pallas_couple", k145,
+             vt.default_config(SIGMA, poly_impl="pallas",
+                               couple_channels=True), None))
     launches, k1_runs = {}, {}
     for name, want, rcfg, fl in runs:
         # only the counts and the K1 times: a run's outputs stay out of the
@@ -2041,10 +2096,16 @@ def main():
                        ("e2e_api_couple", "econ_filter.tcg"),
                        ("e2e_api_f32", "econ_filter.tcw"),
                        ("e2e_api_f32", "econ_filter.tcg"),
-                       ("e2e_poly_econ_off_f32", "poly_filter.tc")):
+                       ("e2e_poly_econ_off_f32", "poly_filter.tc"),
+                       ("e2e_poly_pallas_couple", "poly_filter.tcb")):
         if not launches[name][kern] > 0:
             raise AssertionError(f"{name}: no launch of {kern}: "
                                  f"{launches[name]}")
+    # every K5 launch of the couple_channels path on the batched design
+    couple = launches["e2e_poly_pallas_couple"]
+    if couple["poly_filter.tcb"] != couple["poly_filter"]:
+        raise AssertionError(f"e2e_poly_pallas_couple: {couple}: a K5 launch"
+                             f" off the batched design")
     main_path = launches["e2e_api_zero"]
     k1_api_phase(k1_runs["e2e_api_zero"], k1_shapes, api_cfg)
 
@@ -2178,6 +2239,7 @@ def main():
     cg_kms, cg_pms, (cg_bms, cg_by) = k2_times["gram(couple s0)", 4096]
     f2_kms, f2_pms, (f2_bms, f2_by) = k2_times["gram(s1) f32", 3 * 4096]
     f5_kms, f5_pms, (f5_bms, f5_by) = k5_times["right(s0) f32", 3 * 4096]
+    c5_kms, c5_pms, (c5_bms, c5_by) = k5_times["left(couple s1)", 4096]
     k3_kms, k3_pms, (k3_bms, k3_by) = k3_times["s0.l0"]
     print(json.dumps({"kernels": [
         {"name": "patch_dist", "route": "cuda",
@@ -2238,6 +2300,13 @@ def main():
          "max_abs_err": max(v for n, v in k5_errs.items() if "f32" in n),
          "ms": f5_kms, "plain_ms": f5_pms, "bound_ms": f5_bms,
          "bound_by": f5_by, "library_ms": None},
+        {"name": "poly_filter_couple", "route": "cuda",
+         "source": "vnlb_tpu_torch/csrc/poly_tcb.cu",
+         "replaces": "vnlb_tpu/ops/pallas_poly.py:153",
+         "launches": launches["e2e_poly_pallas_couple"]["poly_filter"],
+         "max_abs_err": max(v for n, v in k5_errs.items() if "couple" in n),
+         "ms": c5_kms, "plain_ms": c5_pms, "bound_ms": c5_bms,
+         "bound_by": c5_by, "library_ms": None},
         {"name": "patch_dist_tile", "route": "cuda",
          "source": "vnlb_tpu_torch/csrc/patch_dist.cu",
          "replaces": "vnlb_tpu/ops/pallas_smat.py:526",

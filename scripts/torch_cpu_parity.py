@@ -27,8 +27,12 @@ error of each pass).  Section ``small_f32`` (~4 minutes) prints
 small clip (``synthetic_video(5, 96, 112, seed=0)``, noise seed 1) for the
 filter modes without ``poly_bf16`` (``poly_bf16=False``, and with
 ``poly_econ=False``): chip_smoke.py's ``REF_SMALL_MODES`` constants for
-them.  Arguments name the sections to run (``flows``, ``compat``,
-``self_match``, ``modes``, ``oracle``, ``small_f32``; all by default).
+them.  Section ``small_couple`` (~5 minutes) prints the same for the
+port's ``poly_impl="pallas", couple_channels=True`` beside ``vnlb_tpu``'s
+plain version of that function (``couple_channels=True, poly_econ=False,
+poly_fused=False``: the Pallas call has no CPU mode).  Arguments name the
+sections to run (``flows``, ``compat``, ``self_match``, ``modes``,
+``oracle``, ``small_f32``, ``small_couple``; all by default).
 """
 
 import os
@@ -297,8 +301,25 @@ def small_f32():
               f"{compute_psnr(d.numpy(), clean):.6f} dB", flush=True)
 
 
+def small_couple():
+    clean = synthetic_video(5, 96, 112, seed=0)
+    noisy = add_noise(clean, 20.0, seed=1)
+    jkw = dict(couple_channels=True, poly_econ=False, poly_fused=False)
+    kw = dict(couple_channels=True, poly_impl="pallas")
+    jd, jb, _ = vnlb_tpu.denoise(noisy, 20.0,
+                                 cfg=vnlb_tpu.default_config(20.0, **jkw))
+    d, b, _ = vt.denoise(noisy, 20.0, cfg=vt.default_config(20.0, **kw),
+                         device="cpu")
+    print(f"[small_couple] vnlb_tpu {jkw}: basic / deno "
+          f"{compute_psnr(np.asarray(jb), clean):.6f} / "
+          f"{compute_psnr(np.asarray(jd), clean):.6f} dB; port {kw}: "
+          f"{compute_psnr(b.numpy(), clean):.6f} / "
+          f"{compute_psnr(d.numpy(), clean):.6f} dB", flush=True)
+
+
 SECTIONS = dict(flows=flows, compat=compat, self_match=self_match,
-                modes=modes, oracle=oracle, small_f32=small_f32)
+                modes=modes, oracle=oracle, small_f32=small_f32,
+                small_couple=small_couple)
 
 if __name__ == "__main__":
     torch.set_num_threads(4)

@@ -484,22 +484,24 @@ def test_poly_filter_kernel_matches_plain(card, stage, bf16):
 K5_TC_SHAPES = [(1, 60, 98, 12288), (0, 100, 49, 12288), (1, 37, 98, 777),
                 (0, 64, 33, 535), (1, 16, 128, 300), (0, 100, 98, 300),
                 (1, 20, 49, 300)]
-# the shapes whose f32 buffers exceed the tensor-core design's shared memory
-K5_F32_SMEM = {(16, 128), (100, 98)}
+# the shapes whose f32 buffers exceed the tensor-core design's shared
+# memory: the right route takes the shared-memory design, the left route
+# the batched one
+K5_F32_SMEM = {(16, 128): "tcb", (100, 98): "smem"}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [True, False])
 @pytest.mark.parametrize("stage,k,p,g", K5_TC_SHAPES)
 def test_poly_filter_tc_shapes_match_plain(card, stage, k, p, g, bf16):
-    """K5's tensor-core design (split TF32 without poly_bf16; the
-    shared-memory design for K5_F32_SMEM's f32 shapes) against the plain
+    """K5's tensor-core design (split TF32 without poly_bf16; for
+    K5_F32_SMEM's f32 shapes the design named there) against the plain
     version, at chip_smoke.py's K5 tolerance (rms / scale < 2e-2) and 1e-4
     in f32; a repeat run is bitwise equal and each call is one launch."""
     cfg = vt.default_config(20.0).stage(stage).replace(poly_bf16=bf16)
     # split TF32 without poly_bf16, except where its f32 buffers do not fit
     assert k5.design(k, p, bf16) == (
-        "smem" if not bf16 and (k, p) in K5_F32_SMEM else "tc")
+        K5_F32_SMEM[k, p] if not bf16 and (k, p) in K5_F32_SMEM else "tc")
     xc, xn = _groups(np.random.default_rng(k * p + g + 1), g, k, p, card)
     before = poly_filter.launches
     got = poly_filter(xc, xn, cfg)
@@ -531,6 +533,70 @@ def test_poly_tc_plan_matches_wrapper(card, k, p):
             assert per_sm == 0
 
 
+# K5's batched design: couple_channels' joint groups (the presets' (100,
+# 147) and (60, 294), preset default's (100, 294), and (60, 147)) at a
+# ragged group count
+K5_TCB_SHAPES = [(0, 100, 147, 300), (1, 60, 294, 300), (0, 100, 294, 131),
+                 (1, 60, 147, 300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("stage,k,p,g", K5_TCB_SHAPES)
+def test_poly_filter_tcb_matches_plain(card, stage, k, p, g, bf16):
+    """K5's batched design against the plain version at chip_smoke.py's
+    K5 tolerance (rms / scale < 2e-2 with bf16 operands, 1e-4 in split
+    TF32); a repeat run is bitwise equal; each call is one launch, counted
+    by ``launches`` and ``by_design["tcb"]``."""
+    cfg = vt.default_config(20.0).stage(stage).replace(poly_bf16=bf16)
+    assert k5.design(k, p, bf16) == "tcb"
+    xc, xn = _groups(np.random.default_rng(k * p + g), g, k, p, card)
+    before, tcb = poly_filter.launches, poly_filter.by_design["tcb"]
+    got = poly_filter(xc, xn, cfg)
+    again = poly_filter(xc, xn, cfg)
+    want = poly_filter_plain(xc, xn, cfg)
+    torch.cuda.synchronize()
+    assert poly_filter.launches == before + 2
+    assert poly_filter.by_design["tcb"] == tcb + 2
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    assert _rel_rms(got, want) < (2e-2 if bf16 else 1e-4)
+
+
+@pytest.mark.cuda
+def test_poly_filter_tcb_forced_matches_tc(card):
+    """The batched design forced on the main path's (60, 98) groups
+    (``batched_design=True``) against the tensor-core design, within the
+    bf16 bound; it refuses a right-route shape (no fallback)."""
+    cfg = vt.default_config(20.0).stage(1)
+    xc, xn = _groups(np.random.default_rng(98), 768, 60, 98, card)
+    tcb = poly_filter.by_design["tcb"]
+    got = k5.poly_filter_kernel(xc, xn, cfg, batched_design=True)
+    want = k5.poly_filter_kernel(xc, xn, cfg)
+    torch.cuda.synchronize()
+    assert poly_filter.by_design["tcb"] == tcb + 1
+    assert _rel_rms(got, want) < 2e-2
+    x0 = torch.zeros((2, 100, 49), device=card)
+    with pytest.raises(ValueError, match="batched design"):
+        k5.poly_filter_kernel(x0, x0, vt.default_config(20.0).stage(0),
+                              batched_design=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rnd", [True, False])
+@pytest.mark.parametrize("g,k,p", [(4096, 100, 147), (4096, 60, 294),
+                                   (4096, 100, 294), (300, 60, 147),
+                                   (535, 65, 98), (1, 16, 128),
+                                   (64, 100, 49), (64, 60, 98)])
+def test_poly_tcb_plan_matches_wrapper(card, g, k, p, rnd):
+    """The kernel library's plan of the batched design (padded sizes,
+    tiles, sub-batch, workspace) equals the wrapper's
+    (ops/poly_filter.tcb_plan; 4096 groups at p = 294 take 14 or 17
+    sub-batches); None for the right route."""
+    assert k5.card_tcb_plan(g, k, p, rnd) == k5.tcb_plan(g, k, p, rnd)
+    assert (k5.tcb_plan(g, k, p, rnd) is None) == (k >= p)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["econ", "poly"])
 def test_filter_kernels_refuse_degree_beyond_tables(card, which):
@@ -546,18 +612,23 @@ def test_filter_kernels_refuse_degree_beyond_tables(card, which):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["preset_default", "poly_pallas"])
+@pytest.mark.parametrize("name", ["preset_default", "poly_pallas",
+                                  "poly_pallas_couple"])
 def test_filter_paths_launch_kernels(card, name):
-    """The default preset (w_s=27, K2 on K=100, p=98 groups) and
-    poly_impl="pallas" (K5 in both passes, K2 never) run on the card."""
+    """The default preset (w_s=27, K2 on K=100, p=98 groups),
+    poly_impl="pallas" (K5 in both passes, K2 never) and poly_impl="pallas"
+    with couple_channels (every K5 launch on the batched design) run on
+    the card."""
     clean = synthetic_video(5, 96, 112, seed=0)
     noisy = add_noise(clean, 20.0, seed=1)
     cfg = (vt.default_config(20.0, preset="default")
            if name == "preset_default" else
-           vt.default_config(20.0, poly_impl="pallas"))
+           vt.default_config(20.0, poly_impl="pallas",
+                             couple_channels=name == "poly_pallas_couple"))
     for c in (patch_dist, econ_filter, patch_gather, poly_filter):
         c.launches = 0
     econ_filter.by_design.update(tc=0, tcw=0, smem=0)
+    poly_filter.by_design.update(tc=0, tcb=0, smem=0)
     deno, _, _ = vt.denoise(noisy, 20.0, cfg=cfg, device=card)
     assert min(patch_dist.launches, patch_gather.launches) > 0
     if name == "preset_default":
@@ -565,6 +636,8 @@ def test_filter_paths_launch_kernels(card, name):
         assert econ_filter.by_design["tcw"] > 0
     else:
         assert poly_filter.launches > 0 and econ_filter.launches == 0
+    if name == "poly_pallas_couple":
+        assert poly_filter.by_design["tcb"] == poly_filter.launches
     again, _, _ = vt.denoise(noisy, 20.0, cfg=cfg, device=card)
     assert torch.equal(deno, again)
     assert compute_psnr(deno.cpu().numpy(), clean) > \

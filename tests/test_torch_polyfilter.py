@@ -64,6 +64,26 @@ def test_poly_filter_matches_jax(stage, k, p, bf16):
         assert rms < 1e-4 and mx < 1e-3, (rms, mx)
 
 
+@pytest.mark.parametrize("stage,k,p", [(0, 100, 147),   # couple_channels,
+                                       (1, 60, 294)])   # left route both
+@pytest.mark.parametrize("bf16", [False, True])
+def test_poly_filter_couple_matches_jax(stage, k, p, bf16):
+    """The joint groups of couple_channels (kernel K5's batched design on
+    the card), 2 groups each; f32 at the file's f32 bounds, bf16 at its
+    bf16 bound (measured rms 3.0e-3 at (100, 147), 6.2e-3 at (60, 294):
+    a bf16 rounding flipped by a summation order, carried by the sign
+    iteration)."""
+    jc = jcfg.default_config(20.0, couple_channels=True).stage(stage)
+    jc = jc.replace(poly_bf16=bf16)
+    rng = np.random.default_rng(50 + stage)
+    xc, xn = _groups(rng, 2, k, p), _groups(rng, 2, k, p)
+    rms, mx = _run(jpoly.poly_filter, poly_filter, jc, xc, xn)
+    if bf16:
+        assert rms < 2e-2, rms
+    else:
+        assert rms < 1e-4 and mx < 1e-3, (rms, mx)
+
+
 def test_poly_filter_matches_pallas_interpret():
     """The Pallas kernel K5 replaces, run in interpret mode, at the JAX
     suite's tolerance (tests/test_pallas_poly.py: mean |d| / mean |want|

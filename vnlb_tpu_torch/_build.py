@@ -55,6 +55,10 @@ SIGNATURES = {
     "vnlb_poly_filter_tc": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                              _F, _F, _F, _F, _F, _F, _I, _P], _I),
     "vnlb_poly_filter_tc_plan": ([_I, _I, _I, _P, _P], _I),
+    "vnlb_poly_filter_tcb": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                              _P, _F, _F, _F, _F, _F, _F, _I, _P,
+                              ctypes.c_longlong, _P], _I),
+    "vnlb_poly_filter_tcb_plan": ([_I, _I, _I, _I, _P], _I),
     "vnlb_patch_gather": ([_P, _P, _I, _I, _I, _I, _P, ctypes.c_longlong,
                            _I, _I, _I, _P, _P, _P], _I),
     "vnlb_dense_dist": ([_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],

@@ -26,7 +26,8 @@
 // reads 2 x 23.5 KB, writes 23.5 KB and does ~20 M multiply-adds (15 p^3
 // in the gate, 8 K p^2 in the recurrence, 2 K p^2 in f32), ~280 per byte;
 // a stage-0 group (K=100, p=49) ~3.2 M.  The gate is 15 dependent p x p
-// products.  Two designs (ops/poly_filter.py `design`):
+// products.  Three designs (ops/poly_filter.py `design`); two here, the
+// batched one in poly_tcb.cu:
 //
 // The tensor-core design (`poly_tc_kernel<W, Op>`, econ_tc.cuh) takes every
 // shape with p <= 128 whose buffers fit (ops/poly_filter.py
@@ -57,18 +58,23 @@
 // exact for this function (vnlb_tpu/ops/pallas_poly.py:22-27): the pad
 // block of every matrix stays zero and I is I_p.
 //
-// The shared-memory design (`poly_filter_kernel`) takes what the
-// tensor-core design does not: the joint groups of `couple_channels` (p =
-// 147, 294), whose p x p gate chain needs five p x p f32 matrices (1.7 MB
-// at p = 294, beyond one SM), and the f32 shapes whose buffers do not
-// fit (the right route at p = 98, p = 128); and is the comparison the
-// card's checks time beside the tensor-core design (`smem_design`).  Every
-// product on CUDA cores with the 2x2 register tiles of K2 (group_mm.cuh),
-// with the five p x p buffers (Ah, S / W and three products) and the
-// patch blocks placed in shared memory by priority.  The accumulator of
-// either route (Q, p x p <= K x p, or the K x p sum) lives in the group's
-// own output rows; p x p buffers beyond shared memory spill to a
-// per-block workspace under a persistent grid, as in K2.
+// The batched design (poly_tcb.cu) takes the left routes the tensor-core
+// design does not: the joint groups of `couple_channels` (p = 147, 294),
+// whose gate chain needs five or more p x p matrices (1.3 MB at p = 294
+// in bf16, beyond one SM), left routes with K > 64 and p > 128; every p x
+// p product is one launch over many blocks, through a device workspace.
+//
+// The shared-memory design (`poly_filter_kernel`) takes the rest, the
+// right-route shapes in split TF32 whose f32 buffers do not fit one
+// tensor-core block (the right route at p = 98, p = 128; no preset
+// reaches them), and is the comparison the card's checks time beside the
+// other two (`smem_design`).  Every product on CUDA cores with the 2x2
+// register tiles of K2 (group_mm.cuh), with the five p x p buffers (Ah, S /
+// W and three products) and the patch blocks placed in shared memory by
+// priority.  The accumulator of either route (Q, p x p <= K x p, or the K
+// x p sum) lives in the group's own output rows; p x p buffers beyond
+// shared memory spill to a per-block workspace under a persistent grid, as
+// in K2.
 
 #include <type_traits>
 

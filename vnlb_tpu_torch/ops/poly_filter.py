@@ -1,24 +1,30 @@
 """K5: the two-factor polynomial spectral filter as a CUDA kernel
-(csrc/poly_filter.cu).
+(csrc/poly_filter.cu, csrc/poly_tcb.cu).
 
 ``poly_filter`` dispatches by device: a CPU tensor takes the plain version
 (``poly_filter_plain`` = ops/polyspec.poly_filter); a CUDA tensor launches
 the kernel, and a build or launch failure raises.  Nothing falls back.
 ``poly_filter.launches`` counts kernel launches.
 
-The kernel has two designs (``design``), each a CUDA kernel of its own:
-"tc", tensor cores for every p x p product of the gate, the Chebyshev
-series and the applications, p padded to 64 (two blocks per SM) or to 128
-(one block per SM) by ``tc_width``, for every shape whose buffers fit
-(``tc_smem_bytes``; the left route, K < p, needs K <= 64): bf16 operands
-under ``poly_bf16``, and without it f32 operands as three TF32 products
-of split operands (csrc/econ_tc.cuh ``OpTf32``: the right route's (100,
-49) and the left route's (60, 98)); "smem", the shared-memory design on
-CUDA cores, for the rest: the joint groups of ``couple_channels`` (p =
-147, 294), whose p x p gate chain at p = 294 needs five 294 x 294 f32
-matrices (1.7 MB), beyond one SM, and f32 shapes whose buffers do not fit
-(the right route at p = 98, p = 128).  ``poly_filter.by_design`` counts
-the launches of each.
+The kernel has three designs (``design``), each CUDA code of its own:
+"tc", one block per group on tensor cores, p padded to 64 (two blocks per
+SM) or 128 (one block per SM) by ``tc_width``, for every shape whose
+buffers fit one SM (``tc_smem_bytes``; the left route, K < p, needs K <=
+64): the presets' groups, the right route's (100, 49) and the left
+route's (60, 98), bf16 operands under ``poly_bf16`` and split TF32
+without it (csrc/econ_tc.cuh ``OpTf32``).  "tcb", the batched design, for
+every left-route shape "tc" refuses (``tcb_takes``): the joint groups of
+``couple_channels`` ((100, 147), (60, 294), (100, 294), (60, 147)), whose
+gate chain at p = 294 needs five or more 294 x 294 matrices (1.3 MB),
+beyond one SM, left routes with K > 64 and the f32 (16, 128); each p x p
+product of a sub-batch of groups is one launch over its 64 x 64 output
+tiles (in split TF32 a gate product, symmetric, over those on and above
+the diagonal) on tensor cores, through a device workspace the wrapper
+allocates (``tcb_plan``: at most ``TCB_WS_BYTES``).  "smem", the shared-memory
+design on CUDA cores, for the right-route f32 shapes "tc" refuses (the
+right route at p = 98, p = 128) and as the comparison the card's checks
+time beside the others (``smem_design``).  ``poly_filter.by_design``
+counts the launches of each.
 """
 
 from __future__ import annotations
@@ -81,9 +87,61 @@ def tc_smem_bytes(k: int, p: int, rnd: bool = True) -> int:
     return n if n <= TC_SMEM_MAX[w] else 0
 
 
+# the batched design (csrc/poly_tcb.cu ``tcb_plan``): output tiles of
+# TCB_TILE x TCB_TILE, p at most 512, the prologue's xc and strip of C in at
+# most TCB_PRO_SMEM_MAX bytes; each buffer of a group's workspace 256-byte
+# aligned; a launch's workspace at most TCB_WS_BYTES (one sub-batch,
+# csrc/poly_tcb.cu ``kWsBytes``)
+TCB_TILE = 64
+TCB_MAX_P = 512
+TCB_PRO_SMEM_MAX = 200 * 1024
+TCB_WS_BYTES = 512 << 20
+
+
+def tcb_takes(k: int, p: int) -> bool:
+    """Whether the batched design takes (k, p) groups: the left route, p
+    <= 512, xc (rows of round_up(p, 4) floats) and a 16-row strip of C in
+    the prologue's shared memory."""
+    smem = (k * _round_up(p, 4) + 16 * _round_up(p, 16)) * 4
+    return 1 <= k < p <= TCB_MAX_P and smem <= TCB_PRO_SMEM_MAX
+
+
+def tcb_plan(g: int, k: int, p: int, rnd: bool = True) -> dict | None:
+    """The batched design's launch plan for g groups of (k, p) (bf16
+    operands under ``rnd``, else f32), or None where it does not take
+    them (csrc/poly_tcb.cu ``tcb_plan``): p and k padded to 16, the 64 x
+    64 output tiles of a p x p product of the gate (all under ``rnd``;
+    in split TF32, symmetric, those on and above the diagonal) and of a k
+    x p product of the recurrence, a group's workspace (Ah, S twice, S^2,
+    st(S^3) in the operand type; S^3 in f32; the coefficients, C's row
+    |sums| and diagonal; xn in three bf16 parts or f32; z_j twice and their
+    running sum in f32 and, under bf16, z_j twice rounded) and the groups
+    a sub-batch takes: as many as ``TCB_WS_BYTES`` holds, spread evenly."""
+    if not tcb_takes(k, p):
+        return None
+    pp, kp, e = _round_up(p, 16), _round_up(k, 16), 2 if rnd else 4
+    big, small = pp * pp, kp * pp
+    sizes = ([big * e] * (5 if rnd else 4)
+             + [big * 4, MAX_COEF * 4, pp * 4, pp * 4,
+                (3 if rnd else 1) * small * e]
+             + [small * 4] * 3 + ([small * e] * 2 if rnd else []))
+    group = sum(_round_up(b, 256) for b in sizes)
+    cap = max(1, TCB_WS_BYTES // group)
+    n = -(-max(g, 1) // cap)
+    batch = -(-max(g, 1) // n)
+    tn = -(-pp // TCB_TILE)
+    return dict(p_pad=pp, k_pad=kp,
+                tiles=tn * tn if rnd else tn * (tn + 1) // 2,
+                ztiles=tn * -(-kp // TCB_TILE), batch=batch,
+                group_bytes=group, ws_bytes=group * batch)
+
+
 def design(k: int, p: int, rnd: bool) -> str:
-    """Which design of the kernel takes (k, p) groups: "tc" or "smem"."""
-    return "tc" if tc_smem_bytes(k, p, rnd) else "smem"
+    """Which design of the kernel takes (k, p) groups: "tc", "tcb" or
+    "smem"."""
+    if tc_smem_bytes(k, p, rnd):
+        return "tc"
+    return "tcb" if tcb_takes(k, p) else "smem"
 
 
 def tc_plan(k: int, p: int, rnd: bool = True) -> tuple[int, int]:
@@ -97,11 +155,26 @@ def tc_plan(k: int, p: int, rnd: bool = True) -> tuple[int, int]:
     return smem.value, per_sm.value
 
 
+def card_tcb_plan(g: int, k: int, p: int, rnd: bool = True) -> dict | None:
+    """The batched design's plan from the kernel library (``tcb_plan``'s
+    keys; None for a shape it does not take)."""
+    v = (ctypes.c_longlong * 7)()
+    _build.check(_build.library().vnlb_poly_filter_tcb_plan(
+        g, k, p, int(rnd), v),
+        "poly_filter tcb plan")
+    if not v[0]:
+        return None
+    return dict(zip(("p_pad", "k_pad", "tiles", "ztiles", "batch",
+                     "group_bytes", "ws_bytes"), v))
+
+
 def poly_filter_kernel(xc2: torch.Tensor, xn2: torch.Tensor, cfg,
-                       smem_design: bool = False) -> torch.Tensor:
+                       smem_design: bool = False,
+                       batched_design: bool = False) -> torch.Tensor:
     """Launch the CUDA kernel on (G, K, p) f32 CUDA tensors;
-    ``smem_design`` takes the shared-memory design whatever ``design``
-    says (to time both designs on the same inputs)."""
+    ``smem_design`` takes the shared-memory design, ``batched_design``
+    the batched one (a left-route shape), whatever ``design`` says (to
+    time and hold the designs against each other on the same inputs)."""
     if not (xc2.is_cuda and xn2.is_cuda):
         raise ValueError("poly_filter_kernel needs CUDA tensors")
     if xc2.dtype != torch.float32 or xn2.dtype != torch.float32:
@@ -127,11 +200,21 @@ def poly_filter_kernel(xc2: torch.Tensor, xn2: torch.Tensor, cfg,
     args = (pp["n_aggr"], pp["n_polish"], pp["wdeg"], pp["nodes"],
             xs.data_ptr(), dct.data_ptr(), float(pp["tau"]),
             float(pp["sb2"]), float(pp["s2"]), *(float(a) for a in _AGGR))
-    kind = "smem" if smem_design else design(k, p, pp["rnd"])
+    kind = ("smem" if smem_design else "tcb" if batched_design
+            else design(k, p, pp["rnd"]))
     if kind == "tc":
         err = lib.vnlb_poly_filter_tc(xc2.data_ptr(), xn2.data_ptr(),
                                       out.data_ptr(), g, k, p, *args,
                                       int(pp["rnd"]), stream)
+    elif kind == "tcb":
+        plan = tcb_plan(g, k, p, pp["rnd"])
+        if plan is None:
+            raise ValueError(f"the batched design does not take ({k}, {p})"
+                             f" groups (it takes K < p <= {TCB_MAX_P})")
+        ws = torch.empty((plan["ws_bytes"],), dtype=torch.uint8, device=dev)
+        err = lib.vnlb_poly_filter_tcb(
+            xc2.data_ptr(), xn2.data_ptr(), out.data_ptr(), g, k, p, *args,
+            int(pp["rnd"]), ws.data_ptr(), plan["ws_bytes"], stream)
     else:
         ws_n = int(lib.vnlb_poly_filter_ws(g, k, p))
         _build.check(max(-ws_n, 0), "poly_filter workspace plan")
@@ -157,4 +240,4 @@ def poly_filter(xc2: torch.Tensor, xn2: torch.Tensor, cfg) -> torch.Tensor:
 
 
 poly_filter.launches = 0
-poly_filter.by_design = {"tc": 0, "smem": 0}
+poly_filter.by_design = {"tc": 0, "tcb": 0, "smem": 0}

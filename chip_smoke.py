@@ -9,7 +9,7 @@ its launch shapes, ``k1_cases``, beside its bound and its FP32 issue
 floor, with its launch plan held to the library's), holds small-clip
 PSNRs of every preset and filter mode, and of ``denoise_mod``, to the JAX
 package's, then runs the
-two-pass ``denoise`` on a 5x480x854 clip at sigma=20 ten ways and checks
+two-pass ``denoise`` on a 5x480x854 clip at sigma=20 fifteen ways and checks
 each output: the bench config (preset iphone, eig_method poly, step_s 6,
 border_mode mask, topk exact, zero flow), the API default (``denoise(noisy,
 sigma)`` with no cfg: step_s 3, sliding borders) with zero flow and with
@@ -22,7 +22,12 @@ route on the joint (100, 147) and (60, 294) groups), without
 with ``poly_econ=False, poly_bf16=False`` (K5 in split TF32 in the first
 pass), the API default with ``poly_impl="pallas", couple_channels=True``
 (K5's batched tensor-core design on the joint (100, 147) and (60, 294)
-groups of both passes), the API default with
+groups of both passes), the same three filter paths without ``poly_bf16``
+(``poly_impl="pallas"``: K5's tensor-core design in split TF32 in both
+passes; ``couple_channels``: K2's streamed Gram route in split TF32; both:
+K5's batched design in split TF32), preset ``default`` with
+``couple_channels`` (K2's streamed Gram route on (100, 294) groups), the
+API default with
 the all-rows dense search (``dense_rows="full"``: kernel K3) and the exact
 and the streaming top-K; then ``denoise_streaming`` of a 24x480x854 clip
 against the whole-clip ``denoise``, and ``denoise_pipelined`` with both
@@ -47,7 +52,9 @@ one ``denoise`` per aggregation mode (``agg_weight="exp"`` under both
 ``dense_rows``, ``only_frame``, ``agg_bf16``, ``poly_gram=False``, whose
 second pass runs no K2) against its plain-version pass; the port's
 CLI (``scripts/torch_example.py --dataset davis``, a subprocess) on the
-main clip, its PSNRs and launches equal to the API default's; last, the
+main clip, its PSNRs and launches equal to the API default's, and the
+two analysis scripts (``scripts/torch_deno_v_basic.py``,
+``exps/torch_interp_square.py``) the same way; last, the
 card against the C++ oracle (``vnlb_tpu_torch/testing/oracle.py``, built
 with g++; its passes run in threads beside the card's checks) and the
 NumPy oracle (``testing/npref.py``): colour and lattice, the gather search
@@ -61,7 +68,9 @@ K5's lines name the design each group shape takes (tensor cores at width 64 or
 tensor-core design's plan against its Python mirror and its stated blocks
 per SM (the batched design's padded sizes, tiles, sub-batch and
 workspace), and the shared-memory design's time on the same inputs; each
-group shape's repeat run is bitwise equal; and every 480p run logs K1's,
+group shape's repeat run is bitwise equal; the batched design's output on
+a workspace of stale 0xFF bytes is bitwise its output on a fresh one
+(``k5_tcb_stale_ws``); and every 480p run logs K1's,
 K2's and K5's device time and launches (CUDA events around each launch,
 in one extra run); the API default's K1 launches are
 logged by shape (``k1_api_default``).  Every phase prints
@@ -123,12 +132,38 @@ REF_SMALL_MODES = {
                       dict(basic=29.962205, deno=30.117504)),
     "poly_econ_off_f32": (dict(poly_econ=False, poly_bf16=False),
                           dict(basic=30.020904, deno=30.133784)),
+    # scripts/torch_cpu_parity.py small_f5: K5 "tc" in split TF32 (held to
+    # JAX's plain version of the same function, poly_econ and poly_fused
+    # off), K2 "tcg" in split TF32, K5 "tcb" in split TF32 (the same plain
+    # version with couple_channels), K2 "tcg" on preset default's (100,
+    # 294) groups
+    "poly_pallas_f32": (dict(poly_impl="pallas", poly_bf16=False),
+                        dict(basic=30.020904, deno=30.153356)),
+    "couple_f32": (dict(couple_channels=True, poly_bf16=False),
+                   dict(basic=29.919244, deno=30.461341)),
+    "poly_pallas_couple_f32": (dict(poly_impl="pallas", couple_channels=True,
+                                    poly_bf16=False),
+                               dict(basic=30.007160, deno=30.162052)),
+    "default_couple": (dict(preset="default", couple_channels=True),
+                       dict(basic=27.258612, deno=27.303437)),
     "deno_ave": (dict(deno="ave"), dict(basic=22.119456, deno=22.119456)),
     "dense_full": (dict(dense_rows="full"),
                    dict(basic=29.962152, deno=30.117215)),
     "topk_stream": (dict(topk="stream"), dict(basic=29.962152, deno=30.117215)),
     "topk_approx": (dict(topk="approx"), dict(basic=29.962152, deno=30.117215)),
 }
+# preset default with couple_channels on rows 208:272 of the 480p clip at
+# full width, vnlb_tpu on the CPU (scripts/torch_cpu_parity.py f5_480p,
+# topk="stream"; the whole frame needs more memory than its host had)
+REF_BAND_DEFAULT_COUPLE = dict(rows=(208, 272), noisy=22.101752,
+                               basic=27.502580, deno=27.457833)
+# the least gain of deno over noisy at 480p: 6 dB, but 5 dB for preset
+# default with couple_channels, whose joint (100, 294) / (60, 294) groups
+# the algorithm filters worse: vnlb_tpu gains 5.36 dB on the band above
+# (deno below basic, as at 480p on the card) and 5.18 dB on the small
+# clip (REF_SMALL_MODES), and the port 5.44 dB on the whole 480p clip on
+# an NVIDIA H100 80GB HBM3 at 700 W
+E2E_GAIN_DB = {"e2e_default_couple": 5.0}
 # the same clip through denoise_mod (the four-pass variant pipeline)
 REF_SMALL_MOD = dict(basic=29.962574, deno=30.117078)
 # the all-rows search and the streaming run (24 frames: windows of 12 / 14
@@ -374,6 +409,43 @@ def poly_work(g, k, p, scfg):
     return 0, 2 * g * low, 3 * g * k * p * 4, 2 * g * f32
 
 
+def tcb_stale_ws_phase(dev, a0, a1):
+    """K5's batched design on a stale workspace
+    (``testing.stale_ws.tcb_stale_workspace``): at couple_channels'
+    (100, 147) and (60, 294) groups (4096, the main clip's chunk), bf16
+    and split TF32, a launch on a fresh workspace, one on the freed block
+    of 0xFF bytes that the caching allocator hands back (the same
+    ``data_ptr``) and the wrapper's own launch: all bitwise equal."""
+    from vnlb_tpu_torch.testing.stale_ws import tcb_stale_workspace
+
+    rng = np.random.default_rng(5)
+    for scfg, k, p in ((a0, 100, 147), (a1, 60, 294)):
+        base = rng.normal(size=(4096, 1, p)).astype(np.float32) * 30
+        xc, xn = (torch.from_numpy(base + rng.normal(size=(4096, k, p))
+                                   .astype(np.float32) * 20).to(dev)
+                  for _ in range(2))
+        for bf16 in (True, False):
+            r = tcb_stale_workspace(xc, xn, scfg.replace(poly_bf16=bf16))
+            fresh, stale = r["fresh"], r["stale"]
+            same = torch.equal(stale, fresh)
+            own = torch.equal(r["own"], fresh)
+            log("k5_tcb_stale_ws", K=k, p=p, G=4096,
+                operands="bf16" if bf16 else "split_tf32",
+                ws_mib=f"{r['ws_bytes'] / 2 ** 20:.1f}",
+                poisoned_block_reused=r["reused"],
+                stale_bitwise_fresh=same, own_bitwise_fresh=own,
+                max_abs_stale_fresh=(stale - fresh).abs().max().item(),
+                finite=bool(torch.isfinite(stale).all()))
+            if not r["reused"]:
+                raise AssertionError(f"k5_tcb_stale_ws ({k}, {p}): the "
+                                     f"allocator did not hand back the "
+                                     f"poisoned block")
+            if not (same and own and torch.isfinite(fresh).all()):
+                raise AssertionError(f"k5_tcb_stale_ws ({k}, {p}): the "
+                                     f"output depends on the workspace")
+            del r, fresh, stale
+
+
 def k3_work(vid, n_f, scfg):
     """bound() of K3 on one plane: per output value 2*pt*C f32 operations
     for the channel products, 2*(ps-1) for the separable box and 3 for
@@ -401,10 +473,11 @@ def k3_launches(yuv, cfg):
 
 
 def e2e(vt, name, noisy, clean, dev, counters, expect, cfg=None,
-        flows=None):
+        flows=None, min_gain_db=6.0):
     """The main path at full size: one counted warmup run, best of 3 with a
     bitwise repeat check, one run with CUDA events around each K1, K2, K3
-    and K5 launch, the output checks and the plain-version pass.
+    and K5 launch, the output checks (deno >= noisy + ``min_gain_db``) and
+    the plain-version pass.
     ``expect`` names the counters that must launch (the others must not).
     Returns (launches, deno, basic, {(pt, C, level height, window starts): (K1
     device ms, launches)} of the timed run)."""
@@ -463,8 +536,9 @@ def e2e(vt, name, noisy, clean, dev, counters, expect, cfg=None,
         fps=f"{T / best:.3f}", psnr_noisy=f"{p_noisy:.4f}",
         psnr_basic=f"{p_basic:.4f}", psnr_deno=f"{p_deno:.4f}",
         peak_mem_gib=f"{peak / 2 ** 30:.3f}", repeat_bitwise=True, **timed)
-    if not p_deno >= p_noisy + 6.0:
-        raise AssertionError(f"{name}: deno {p_deno} < noisy {p_noisy} + 6")
+    if not p_deno >= p_noisy + min_gain_db:
+        raise AssertionError(f"{name}: deno {p_deno} < noisy {p_noisy} + "
+                             f"{min_gain_db}")
 
     t0 = time.perf_counter()
     dp, bp, plain_s = vt.denoise(noisy_t, SIGMA, flows=flows, cfg=cfg,
@@ -932,52 +1006,113 @@ def pipe_world_phase(vt, dev, mesh_stream, one_s):
         edge_wait_s=",".join(f"{st['edge_s']:.4f}" for st in stats[2:]))
 
 
-def cli_phase(launches_api, psnr_api):
-    """``scripts/torch_example.py --dataset davis`` as a subprocess on the
-    card (the main clip: synthetic seed 0, noise seed 1, no data root): its
-    printed PSNRs equal the API-default e2e run's (``psnr_api`` = (basic,
-    deno)) to the printed decimals, and its kernel launches, read in the
-    subprocess after the script ends, equal that run's
+def run_script(name, script, args, launches_api, cache=None):
+    """A script of the repository as a subprocess on the card with the
+    main clip (``--dataset davis``: synthetic seed 0, noise seed 1, no
+    data root; ``cache``: its VNLB_TPU_CACHE): (stdout, wall seconds,
+    kernel launches), the launches read in the subprocess after the
+    script ends and held equal to the API-default e2e run's
     (``launches_api``)."""
     import os
 
     root = os.path.dirname(os.path.abspath(__file__))
-    script = os.path.join(root, "scripts", "torch_example.py")
+    script = os.path.join(root, script)
     code = ("import json, runpy, sys; "
-            f"sys.argv = [{script!r}, '--dataset', 'davis']; "
+            f"sys.argv = {[script, '--dataset', 'davis', *args]!r}; "
             f"runpy.run_path({script!r}, run_name='__main__'); "
             "from vnlb_tpu_torch.pipeline import KERNELS; "
             "print(json.dumps({k.__name__: k.launches for k in KERNELS}))")
     env = dict(os.environ, VNLB_TPU_DATA=os.path.join(root, "build",
                                                       "no_data"))
+    if cache is not None:
+        env["VNLB_TPU_CACHE"] = cache
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                          capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
     if res.returncode != 0:
-        raise AssertionError(f"cli: exit {res.returncode}\n"
+        raise AssertionError(f"{name}: exit {res.returncode}\n"
                              f"{res.stderr[-3000:]}")
-    out = res.stdout.strip().splitlines()
-    launches = json.loads(out[-1])
+    launches = json.loads(res.stdout.strip().splitlines()[-1])
+    for k, n in launches.items():
+        if n != launches_api.get(k, 0):
+            raise AssertionError(f"{name}: launches {launches}, the API "
+                                 f"default's {launches_api}")
+    return res.stdout, wall, launches
+
+
+def cli_phase(launches_api, psnr_api):
+    """``scripts/torch_example.py --dataset davis`` as a subprocess on the
+    card: its printed PSNRs equal the API-default e2e run's (``psnr_api``
+    = (basic, deno)) to the printed decimals, and its kernel launches
+    equal that run's (``launches_api``)."""
+    stdout, wall, launches = run_script(
+        "cli", "scripts/torch_example.py", [], launches_api)
+    out = stdout.strip().splitlines()
     printed = {m.group(1): m.group(2) for m in (
         re.match(r"psnr\s+(\w+): ([\d.]+) dB", line) for line in out) if m}
-    ssim = re.search(r"ssim\s+deno: ([\d.]+) \(([\d.]+)s\)",
-                     res.stdout)
+    ssim = re.search(r"ssim\s+deno: ([\d.]+) \(([\d.]+)s\)", stdout)
     want = {"basic": f"{psnr_api[0]:.3f}", "deno": f"{psnr_api[1]:.3f}"}
     if {k: printed.get(k) for k in want} != want:
         raise AssertionError(f"cli: printed PSNRs {printed}, the API "
                              f"default's {want}")
-    for k, n in launches.items():
-        if n != launches_api.get(k, 0):
-            raise AssertionError(f"cli: launches {launches}, the API "
-                                 f"default's {launches_api}")
-    denoise_s = re.search(r"time: ([\d.]+)s", res.stdout).group(1)
+    denoise_s = re.search(r"time: ([\d.]+)s", stdout).group(1)
     log("cli", command="scripts/torch_example.py --dataset davis",
         wall_s=f"{wall:.2f}", denoise_s=denoise_s,
         psnr_noisy=printed["noisy"], psnr_basic=printed["basic"],
         psnr_deno=printed["deno"], api_default=f"{want['basic']}/"
         f"{want['deno']}", ssim=ssim.group(1), ssim_s=ssim.group(2),
         ssim_share=f"{float(ssim.group(2)) / wall:.3f}", **launches)
+
+
+def analysis_scripts_phase(launches_api, psnr_api):
+    """The two analysis scripts as subprocesses on the card, on the main
+    clip, under a new result cache: ``scripts/torch_deno_v_basic.py``
+    prints the API-default e2e run's basic / deno PSNRs (``psnr_api``) to
+    its 3 decimals and a line per frame and region;
+    ``exps/torch_interp_square.py`` makes its vnlb output with the API
+    default and its blurred stand-ins, and its vnlb vertex (alpha, beta) =
+    (1, 0) is that run's deno PSNR to 4 decimals.  Each launches the API
+    default's kernels as often as that run (``launches_api``)."""
+    import tempfile
+
+    stdout, wall, launches = run_script(
+        "analysis_scripts deno_v_basic", "scripts/torch_deno_v_basic.py", [],
+        launches_api)
+    total = re.search(r"basic: ([\d.]+) dB\s+deno: ([\d.]+) dB", stdout)
+    frames = re.findall(r"frame (\d+) (edge|flat): basic ([\d.]+)\s+deno "
+                        r"([\d.]+)\s+delta ([+-][\d.]+) dB", stdout)
+    want = (f"{psnr_api[0]:.3f}", f"{psnr_api[1]:.3f}")
+    if total is None or total.groups() != want or len(frames) != 2 * T:
+        raise AssertionError(f"analysis_scripts: torch_deno_v_basic.py "
+                             f"printed {stdout[:2000]!r}, the API default's "
+                             f"basic / deno {want}")
+    deltas = {r: [float(f[4]) for f in frames if f[1] == r]
+              for r in ("edge", "flat")}
+    log("analysis_scripts", script="scripts/torch_deno_v_basic.py",
+        wall_s=f"{wall:.2f}", psnr_basic=want[0], psnr_deno=want[1],
+        frame_lines=len(frames),
+        edge_delta_db=",".join(f"{d:+.3f}" for d in deltas["edge"]),
+        flat_delta_db=",".join(f"{d:+.3f}" for d in deltas["flat"]),
+        **launches)
+    with tempfile.TemporaryDirectory() as cache:
+        stdout, wall, launches = run_script(
+            "analysis_scripts interp_square", "exps/torch_interp_square.py",
+            [], launches_api, cache=cache)
+    # the surface, then the launches line
+    table = json.loads(stdout.strip().rsplit("\n", 1)[0])
+    vertex = {(r["alpha"], r["beta"]): r["psnr"] for r in table["surface"]}
+    if f"{vertex[1.0, 0.0]:.4f}" != f"{psnr_api[1]:.4f}":
+        raise AssertionError(f"analysis_scripts: torch_interp_square.py's "
+                             f"vnlb vertex {vertex[1.0, 0.0]}, the API "
+                             f"default's deno {psnr_api[1]}")
+    log("analysis_scripts", script="exps/torch_interp_square.py",
+        wall_s=f"{wall:.2f}", points=len(vertex),
+        vnlb_vertex_psnr=f"{vertex[1.0, 0.0]:.6f}",
+        api_default_deno=f"{psnr_api[1]:.6f}",
+        vertex_minus_api_db=f"{vertex[1.0, 0.0] - psnr_api[1]:.3g}",
+        best=f"{table['best']['alpha']},{table['best']['beta']}",
+        best_psnr=f"{table['best']['psnr']:.4f}", **launches)
 
 
 # the estimated-flow, reference-order and aggregation-mode phases: a
@@ -1925,6 +2060,8 @@ def main():
                  (4096, "gram(couple default s0)", dflt0, 100, 294),
                  (4096, "gram(couple s0) f32", s0.replace(poly_bf16=False),
                   100, 147),
+                 (4096, "gram(couple s1) f32", s1.replace(poly_bf16=False),
+                  60, 294),
                  (3 * 4096, "matrix(s0) f32", s0.replace(poly_bf16=False),
                   100, 49),
                  (3 * 4096, "gram(s1) f32", s1.replace(poly_bf16=False),
@@ -2015,6 +2152,7 @@ def main():
             5 if g == 768 else 2, beside=beside, tags=tags)
         k5_err = max(k5_err, err)
         k5_errs[name] = max(k5_errs.get(name, 0.0), err)
+    tcb_stale_ws_phase(dev, a0, a1)
 
     # ---- 7. small-clip parity with the JAX package (CPU numbers) ----
     small_clean = synthetic_video(5, 96, 112, seed=0)
@@ -2046,6 +2184,25 @@ def main():
         deno_psnr=f"{pd:.4f}",
         jax_cpu=f"{REF_SMALL_MOD['basic']}/{REF_SMALL_MOD['deno']}",
         seconds=f"{sec:.2f}")
+    # the witness of e2e_default_couple's gain floor: the band of the 480p
+    # clip that vnlb_tpu denoised on the CPU
+    ref = REF_BAND_DEFAULT_COUPLE
+    rows = slice(*ref["rows"])
+    band_clean = np.ascontiguousarray(clean[..., rows, :])
+    d, b, sec = vt.denoise(np.ascontiguousarray(noisy[..., rows, :]), SIGMA,
+                           cfg=vt.default_config(SIGMA, preset="default",
+                                                 couple_channels=True),
+                           device=dev)
+    pb = compute_psnr(b.cpu().numpy(), band_clean)
+    pd = compute_psnr(d.cpu().numpy(), band_clean)
+    if not (abs(pb - ref["basic"]) < 0.02 and abs(pd - ref["deno"]) < 0.02):
+        raise AssertionError(f"band_default_couple PSNR {pb}/{pd} vs JAX "
+                             f"{ref}")
+    log("band_default_couple", rows=f"{rows.start}:{rows.stop}",
+        basic_psnr=f"{pb:.4f}", deno_psnr=f"{pd:.4f}",
+        jax_cpu=f"{ref['basic']}/{ref['deno']}",
+        gain_db=f"{pd - ref['noisy']:.4f}", seconds=f"{sec:.2f}")
+    del d, b
 
     # ---- 8. end to end at 5x480x854: each main path with the launch
     # counts set to 0 just before it and read just after ----
@@ -2075,13 +2232,28 @@ def main():
             # both passes
             ("e2e_poly_pallas_couple", k145,
              vt.default_config(SIGMA, poly_impl="pallas",
+                               couple_channels=True), None),
+            # the filter paths first run end to end here: K5 "tc" in split
+            # TF32 in both passes, K2 "tcg" in split TF32, K5 "tcb" in
+            # split TF32, K2 "tcg" on preset default's (100, 294) groups
+            ("e2e_poly_pallas_f32", k145,
+             vt.default_config(SIGMA, poly_impl="pallas", poly_bf16=False),
+             None),
+            ("e2e_api_couple_f32", k124,
+             vt.default_config(SIGMA, couple_channels=True, poly_bf16=False),
+             None),
+            ("e2e_poly_pallas_couple_f32", k145,
+             vt.default_config(SIGMA, poly_impl="pallas",
+                               couple_channels=True, poly_bf16=False), None),
+            ("e2e_default_couple", k124,
+             vt.default_config(SIGMA, preset="default",
                                couple_channels=True), None))
     launches, k1_runs = {}, {}
     for name, want, rcfg, fl in runs:
         # only the counts and the K1 times: a run's outputs stay out of the
         # next run's peak
         out = e2e(vt, name, noisy, clean, dev, counters, want, cfg=rcfg,
-                  flows=fl)
+                  flows=fl, min_gain_db=E2E_GAIN_DB.get(name, 6.0))
         launches[name], k1_runs[name] = out[0], out[3]
         if name == "e2e_api_zero":
             api_psnr = (compute_psnr(out[2].cpu().numpy(), clean),
@@ -2097,15 +2269,20 @@ def main():
                        ("e2e_api_f32", "econ_filter.tcw"),
                        ("e2e_api_f32", "econ_filter.tcg"),
                        ("e2e_poly_econ_off_f32", "poly_filter.tc"),
-                       ("e2e_poly_pallas_couple", "poly_filter.tcb")):
+                       ("e2e_poly_pallas_couple", "poly_filter.tcb"),
+                       ("e2e_poly_pallas_f32", "poly_filter.tc"),
+                       ("e2e_api_couple_f32", "econ_filter.tcg"),
+                       ("e2e_poly_pallas_couple_f32", "poly_filter.tcb"),
+                       ("e2e_default_couple", "econ_filter.tcg")):
         if not launches[name][kern] > 0:
             raise AssertionError(f"{name}: no launch of {kern}: "
                                  f"{launches[name]}")
-    # every K5 launch of the couple_channels path on the batched design
-    couple = launches["e2e_poly_pallas_couple"]
-    if couple["poly_filter.tcb"] != couple["poly_filter"]:
-        raise AssertionError(f"e2e_poly_pallas_couple: {couple}: a K5 launch"
-                             f" off the batched design")
+    # every K5 launch of the couple_channels paths on the batched design
+    for name in ("e2e_poly_pallas_couple", "e2e_poly_pallas_couple_f32"):
+        couple = launches[name]
+        if couple["poly_filter.tcb"] != couple["poly_filter"]:
+            raise AssertionError(f"{name}: {couple}: a K5 launch off the "
+                                 f"batched design")
     main_path = launches["e2e_api_zero"]
     k1_api_phase(k1_runs["e2e_api_zero"], k1_shapes, api_cfg)
 
@@ -2225,6 +2402,7 @@ def main():
     # ---- 10b. the port's CLI on the main clip ----
     torch.cuda.empty_cache()
     cli_phase(launches["e2e_api_zero"], api_psnr)
+    analysis_scripts_phase(launches["e2e_api_zero"], api_psnr)
 
     # ---- 10c. the card against the C++ oracle and npref ----
     torch.cuda.empty_cache()

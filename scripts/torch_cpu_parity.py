@@ -30,13 +30,29 @@ filter modes without ``poly_bf16`` (``poly_bf16=False``, and with
 them.  Section ``small_couple`` (~5 minutes) prints the same for the
 port's ``poly_impl="pallas", couple_channels=True`` beside ``vnlb_tpu``'s
 plain version of that function (``couple_channels=True, poly_econ=False,
-poly_fused=False``: the Pallas call has no CPU mode).  Arguments name the
-sections to run (``flows``, ``compat``, ``self_match``, ``modes``,
-``oracle``, ``small_f32``, ``small_couple``; all by default).
+poly_fused=False``: the Pallas call has no CPU mode).  Section
+``small_f5`` prints the same for four filter modes: ``poly_impl="pallas",
+poly_bf16=False``, ``couple_channels=True, poly_bf16=False``, both
+together, and preset ``default`` with ``couple_channels=True`` (each
+``poly_impl="pallas"`` mode beside ``vnlb_tpu``'s plain version of the
+same function, as above): chip_smoke.py's ``REF_SMALL_MODES`` constants
+``poly_pallas_f32``, ``couple_f32``, ``poly_pallas_couple_f32`` and
+``default_couple``.  Section ``f5_480p`` (~5 minutes, ~14 GB)
+prints ``vnlb_tpu``'s PSNRs of noisy, basic and deno and the port's of
+basic and deno for preset ``default`` with ``couple_channels=True``
+(``vnlb_tpu`` with ``topk="stream"``, equal to the one-shot top-K with far
+less peak memory) on the small clip and on rows 208:272 (``F5_ROWS``) of
+chip_smoke.py's 480p clip (``synthetic_video(5, 480, 854, seed=0)``, noise
+seed 1) at full width: chip_smoke.py's ``REF_BAND_DEFAULT_COUPLE``, the
+witness of its ``e2e_default_couple`` gain floor (``E2E_GAIN_DB``).
+Arguments name the sections to run (``flows``, ``compat``,
+``self_match``, ``modes``, ``oracle``, ``small_f32``, ``small_couple``,
+``small_f5``, ``f5_480p``; all but ``f5_480p`` by default).
 """
 
 import os
 import sys
+import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -317,11 +333,76 @@ def small_couple():
           f"{compute_psnr(d.numpy(), clean):.6f} dB", flush=True)
 
 
+# chip_smoke.py's name, the port's config, vnlb_tpu's (poly_impl="pallas"
+# held to the plain version of the same function)
+SMALL_F5 = (
+    ("poly_pallas_f32", dict(poly_impl="pallas", poly_bf16=False),
+     dict(poly_econ=False, poly_fused=False, poly_bf16=False)),
+    ("couple_f32", dict(couple_channels=True, poly_bf16=False),
+     dict(couple_channels=True, poly_bf16=False)),
+    ("poly_pallas_couple_f32",
+     dict(poly_impl="pallas", couple_channels=True, poly_bf16=False),
+     dict(couple_channels=True, poly_econ=False, poly_fused=False,
+          poly_bf16=False)),
+    ("default_couple", dict(preset="default", couple_channels=True),
+     dict(preset="default", couple_channels=True)))
+
+
+def small_f5():
+    clean = synthetic_video(5, 96, 112, seed=0)
+    noisy = add_noise(clean, 20.0, seed=1)
+    for name, kw, jkw in SMALL_F5:
+        jd, jb, _ = vnlb_tpu.denoise(noisy, 20.0,
+                                     cfg=vnlb_tpu.default_config(20.0, **jkw))
+        d, b, _ = vt.denoise(noisy, 20.0, cfg=vt.default_config(20.0, **kw),
+                             device="cpu")
+        print(f"[small_f5] {name}: vnlb_tpu {jkw}: basic / deno "
+              f"{compute_psnr(np.asarray(jb), clean):.6f} / "
+              f"{compute_psnr(np.asarray(jd), clean):.6f} dB; port {kw}: "
+              f"{compute_psnr(b.numpy(), clean):.6f} / "
+              f"{compute_psnr(d.numpy(), clean):.6f} dB", flush=True)
+
+
+# the band of chip_smoke.py's 480p clip that f5_480p denoises: 64 of every
+# frame's rows at full width (vnlb_tpu on the CPU needs over 28 GB for the
+# whole frame in this configuration)
+F5_ROWS = (208, 272)
+
+
+def f5_480p():
+    # topk="stream" (bit-equal to the one-shot top-K, far less peak
+    # memory), first on the small clip beside small_f5's number
+    jkw = dict(SMALL_F5[-1][2], topk="stream")
+    r0, r1 = F5_ROWS
+    for t, h, w, rows in ((5, 96, 112, slice(None)),
+                          (5, 480, 854, slice(r0, r1))):
+        clean = synthetic_video(t, h, w, seed=0)
+        noisy = add_noise(clean, 20.0, seed=1)[..., rows, :]
+        clean = clean[..., rows, :]
+        t0 = time.perf_counter()
+        jd, jb, _ = vnlb_tpu.denoise(noisy, 20.0,
+                                     cfg=vnlb_tpu.default_config(20.0, **jkw))
+        jd, jb = np.asarray(jd), np.asarray(jb)
+        print(f"[f5_480p] default_couple: vnlb_tpu {jkw} at {t}x{h}x{w}, "
+              f"rows {rows.start}:{rows.stop}: noisy / basic / deno "
+              f"{compute_psnr(noisy, clean):.6f} / "
+              f"{compute_psnr(jb, clean):.6f} / {compute_psnr(jd, clean):.6f}"
+              f" dB, {time.perf_counter() - t0:.1f} s", flush=True)
+        del jd, jb
+        d, b, _ = vt.denoise(np.ascontiguousarray(noisy), 20.0,
+                             cfg=vt.default_config(20.0, **SMALL_F5[-1][1]),
+                             device="cpu")
+        print(f"[f5_480p] default_couple: port {SMALL_F5[-1][1]}: basic / "
+              f"deno {compute_psnr(b.numpy(), clean):.6f} / "
+              f"{compute_psnr(d.numpy(), clean):.6f} dB", flush=True)
+
+
 SECTIONS = dict(flows=flows, compat=compat, self_match=self_match,
                 modes=modes, oracle=oracle, small_f32=small_f32,
-                small_couple=small_couple)
+                small_couple=small_couple, small_f5=small_f5,
+                f5_480p=f5_480p)
 
 if __name__ == "__main__":
     torch.set_num_threads(4)
-    for name in sys.argv[1:] or SECTIONS:
+    for name in sys.argv[1:] or [s for s in SECTIONS if s != "f5_480p"]:
         SECTIONS[name]()

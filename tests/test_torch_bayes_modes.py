@@ -1,7 +1,9 @@
 """Every branch of the port's ``bayes_denoise`` dispatch against the JAX
 package on the CPU: the eigen modes (xla, jacobi, rational), the poly
 modes (econ, two-factor on the ``poly_impl="pallas"`` and ``poly_econ=False``
-routes, fused), ``couple_channels`` and ``deno="ave"``; plus the batched
+routes, fused), ``couple_channels``, the ``poly_impl="pallas"`` and
+``couple_channels`` modes without ``poly_bf16``, preset ``default`` with
+``couple_channels``, and ``deno="ave"``; plus the batched
 Jacobi eigenvalues and the Cholesky inverse.  Filtered patches are
 compared, not eigenvectors (signs and degenerate subspaces differ)."""
 
@@ -30,7 +32,10 @@ torch.set_num_threads(2)
 # poly_fused off).  Bounds: measured rms 2e-6 - 8e-6 for the exact modes,
 # 4e-4 - 7e-4 for the joint econ groups, 2e-3 - 3e-3 for the two-factor
 # filter's bf16 sign gate in the second pass (2.0e-3 / 5.2e-3 on its joint
-# couple_channels groups, stage 0 / 1).
+# couple_channels groups, stage 0 / 1).  Without poly_bf16 (the "_f32"
+# modes, no bf16 gate) the measured rms is 1.3e-6 / 1.7e-6 (poly_pallas),
+# 2.3e-6 / 5.0e-6 (couple) and 1.3e-6 / 2.3e-6 (poly_pallas_couple), stage
+# 0 / 1; preset default's joint econ groups 3.4e-4 / 7.3e-4.
 MODES = {
     "xla": (dict(eig_method="xla"), None, 1e-4),
     "jacobi": (dict(eig_method="jacobi"), None, 1e-4),
@@ -44,6 +49,16 @@ MODES = {
     "poly_econ_off": (dict(poly_econ=False), None, 2e-2),
     "couple_channels": (dict(couple_channels=True), None, 5e-3),
     "couple_xla": (dict(couple_channels=True, eig_method="xla"), None, 1e-4),
+    "poly_pallas_f32": (dict(poly_impl="pallas", poly_bf16=False),
+                        dict(poly_econ=False, poly_fused=False,
+                             poly_bf16=False), 1e-4),
+    "couple_f32": (dict(couple_channels=True, poly_bf16=False), None, 1e-4),
+    "poly_pallas_couple_f32": (
+        dict(poly_impl="pallas", couple_channels=True, poly_bf16=False),
+        dict(couple_channels=True, poly_econ=False, poly_fused=False,
+             poly_bf16=False), 1e-4),
+    "default_couple": (dict(preset="default", couple_channels=True), None,
+                       5e-3),
 }
 
 

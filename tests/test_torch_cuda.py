@@ -32,6 +32,7 @@ from vnlb_tpu_torch.ops.poly_filter import poly_filter, poly_filter_plain
 from vnlb_tpu_torch.ops.search import (_window_starts, eff_dt_range,
                                        search_levels, track_centers)
 from vnlb_tpu_torch.testing.data import add_noise, drift_flows, synthetic_video
+from vnlb_tpu_torch.testing.stale_ws import tcb_stale_workspace
 from vnlb_tpu_torch.utils.metrics import compute_psnr
 
 BENCH = dict(preset="iphone", eig_method="poly", step_s=6,
@@ -580,6 +581,27 @@ def test_poly_filter_tcb_forced_matches_tc(card):
     with pytest.raises(ValueError, match="batched design"):
         k5.poly_filter_kernel(x0, x0, vt.default_config(20.0).stage(0),
                               batched_design=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("stage,k,p", [(0, 100, 147), (1, 60, 294)])
+def test_poly_filter_tcb_stale_workspace(card, stage, k, p, bf16):
+    """The batched design's output does not depend on what its workspace
+    held: at 4096 groups a launch on a fresh workspace and one on the
+    block of a freed workspace of 0xFF bytes (NaN as f32 and as bf16),
+    which the caching allocator hands back (the same ``data_ptr``), are
+    bitwise equal, and equal the wrapper's own launch."""
+    cfg = vt.default_config(20.0).stage(stage).replace(poly_bf16=bf16)
+    xc, xn = _groups(np.random.default_rng(k * p), 4096, k, p, card)
+    r = tcb_stale_workspace(xc, xn, cfg)
+    assert r["reused"]
+    assert torch.isfinite(r["fresh"]).all()
+    assert torch.equal(r["stale"], r["fresh"])
+    assert torch.equal(r["own"], r["fresh"])
+    short = torch.empty((r["ws_bytes"] // 2,), dtype=torch.uint8, device=card)
+    with pytest.raises(ValueError, match="workspace"):
+        k5.poly_filter_kernel(xc, xn, cfg, _workspace=short)
 
 
 @pytest.mark.cuda

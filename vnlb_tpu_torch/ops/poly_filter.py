@@ -170,11 +170,17 @@ def card_tcb_plan(g: int, k: int, p: int, rnd: bool = True) -> dict | None:
 
 def poly_filter_kernel(xc2: torch.Tensor, xn2: torch.Tensor, cfg,
                        smem_design: bool = False,
-                       batched_design: bool = False) -> torch.Tensor:
+                       batched_design: bool = False,
+                       _workspace: torch.Tensor | None = None
+                       ) -> torch.Tensor:
     """Launch the CUDA kernel on (G, K, p) f32 CUDA tensors;
     ``smem_design`` takes the shared-memory design, ``batched_design``
     the batched one (a left-route shape), whatever ``design`` says (to
-    time and hold the designs against each other on the same inputs)."""
+    time and hold the designs against each other on the same inputs).
+    ``_workspace``, a check's hook that the passes never give: the
+    batched design's workspace, a uint8 CUDA tensor of at least
+    ``tcb_plan(...)["ws_bytes"]`` bytes, in place of a new one (to show
+    that the output does not depend on what the workspace held)."""
     if not (xc2.is_cuda and xn2.is_cuda):
         raise ValueError("poly_filter_kernel needs CUDA tensors")
     if xc2.dtype != torch.float32 or xn2.dtype != torch.float32:
@@ -202,6 +208,9 @@ def poly_filter_kernel(xc2: torch.Tensor, xn2: torch.Tensor, cfg,
             float(pp["sb2"]), float(pp["s2"]), *(float(a) for a in _AGGR))
     kind = ("smem" if smem_design else "tcb" if batched_design
             else design(k, p, pp["rnd"]))
+    if _workspace is not None and kind != "tcb":
+        raise ValueError(f"a workspace is given to the {kind!r} design; "
+                         f"only the batched design takes one")
     if kind == "tc":
         err = lib.vnlb_poly_filter_tc(xc2.data_ptr(), xn2.data_ptr(),
                                       out.data_ptr(), g, k, p, *args,
@@ -211,7 +220,14 @@ def poly_filter_kernel(xc2: torch.Tensor, xn2: torch.Tensor, cfg,
         if plan is None:
             raise ValueError(f"the batched design does not take ({k}, {p})"
                              f" groups (it takes K < p <= {TCB_MAX_P})")
-        ws = torch.empty((plan["ws_bytes"],), dtype=torch.uint8, device=dev)
+        ws = _workspace
+        if ws is None:
+            ws = torch.empty((plan["ws_bytes"],), dtype=torch.uint8,
+                             device=dev)
+        elif not (ws.dtype == torch.uint8 and ws.device == dev
+                  and ws.is_contiguous() and ws.numel() >= plan["ws_bytes"]):
+            raise ValueError(f"a workspace of {plan['ws_bytes']} contiguous "
+                             f"uint8 bytes on {dev} is needed")
         err = lib.vnlb_poly_filter_tcb(
             xc2.data_ptr(), xn2.data_ptr(), out.data_ptr(), g, k, p, *args,
             int(pp["rnd"]), ws.data_ptr(), plan["ws_bytes"], stream)

@@ -14,8 +14,9 @@ shared-memory design), a bitwise repeat check and, at 12,288 groups, the
 times of the design, of the shared-memory design and of the plain version
 (CUDA events).  ``--sha-only`` prints only a SHA-256 of K2's output at the
 main path's two shapes from fixed inputs, for the package under ``--tree``
-(default: this checkout), and of the other bf16 designs (K2 at width 128,
-K5's two routes), so that two trees can be compared bit for bit.
+(default: this checkout), of the other bf16 designs (K2 at width 128,
+K5's two routes) and of K5's tensor-core design in split TF32, so that two
+trees can be compared bit for bit.
 """
 
 import argparse
@@ -56,6 +57,8 @@ SHAPES = [("k2", 12288, 100, 49, "iphone", 0, True),
           ("k5", 300, 20, 49, "iphone", 1, False),
           ("k5", 300, 16, 128, "iphone", 1, True),
           ("k5", 300, 100, 98, "default", 0, True),
+          ("k5", 12288, 100, 98, "default", 0, True),
+          ("k5", 12288, 100, 98, "default", 0, False),
           ("k5", 300, 20, 49, "iphone", 1, True),
           ("k5", 768, 60, 147, "iphone", 1, True)]
 # group counts that are timed
@@ -107,16 +110,27 @@ def ptxas_report(_build):
 
 def sha_only(vt, dev):
     """SHA-256 of the bf16 designs' outputs: K2 at width 64 (the main
-    path's shapes) and 128 (preset default's (100, 98)), K5 both routes."""
+    path's shapes) and 128 (preset default's (100, 98)), K5 both routes
+    (and preset default's right route at p = 98); then of K5's tensor-core
+    design in split TF32 at the shapes it takes at both widths (the
+    right route's (100, 49), (64, 33) and (250, 49), the left route's
+    (60, 98) and (20, 49))."""
     from vnlb_tpu_torch.ops.econ_filter import econ_filter_kernel
     from vnlb_tpu_torch.ops.poly_filter import poly_filter_kernel
-    for name, fn, k, p, preset, stage in (
-            ("k2", econ_filter_kernel, 100, 49, "iphone", 0),
-            ("k2", econ_filter_kernel, 60, 98, "iphone", 1),
-            ("k2", econ_filter_kernel, 100, 98, "default", 0),
-            ("k5", poly_filter_kernel, 100, 49, "iphone", 0),
-            ("k5", poly_filter_kernel, 60, 98, "iphone", 1)):
-        cfg = vt.default_config(20.0, preset=preset).stage(stage)
+    for name, fn, k, p, preset, stage, bf16 in (
+            ("k2", econ_filter_kernel, 100, 49, "iphone", 0, True),
+            ("k2", econ_filter_kernel, 60, 98, "iphone", 1, True),
+            ("k2", econ_filter_kernel, 100, 98, "default", 0, True),
+            ("k5", poly_filter_kernel, 100, 49, "iphone", 0, True),
+            ("k5", poly_filter_kernel, 60, 98, "iphone", 1, True),
+            ("k5", poly_filter_kernel, 100, 98, "default", 0, True),
+            ("k5_f32", poly_filter_kernel, 100, 49, "iphone", 0, False),
+            ("k5_f32", poly_filter_kernel, 64, 33, "iphone", 0, False),
+            ("k5_f32", poly_filter_kernel, 250, 49, "iphone", 0, False),
+            ("k5_f32", poly_filter_kernel, 60, 98, "iphone", 1, False),
+            ("k5_f32", poly_filter_kernel, 20, 49, "iphone", 1, False)):
+        cfg = vt.default_config(20.0, preset=preset).stage(stage).replace(
+            poly_bf16=bf16)
         xc, xn = groups(np.random.default_rng(k * p), 4096, k, p, dev)
         out = fn(xc, xn, cfg).cpu().numpy()
         print(f"{name}_sha K={k} p={p} "

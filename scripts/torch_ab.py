@@ -9,12 +9,14 @@ bench config, the API default (zero flow), the API default with
 ``poly_impl="pallas"`` (K5 in both passes), preset ``default`` (K2 on
 (100, 98) groups in the first pass), the API default with
 ``dense_rows="full"`` (K3 planes for the interior sites), with
-``couple_channels`` (K2 on the joint groups), without ``poly_bf16`` and
-with ``poly_econ=False, poly_bf16=False`` (K5 in the first pass): one warmup,
-then ``runs`` (default 3; 0 skips the paths) timed runs each, and prints
-one ``[ab]`` line per path with the walls, the best wall, the peak device
-memory, the PSNR of ``basic`` and ``deno``, K1's, K2's and K3's device
-time in one more run (CUDA events around each launch,
+``couple_channels`` (K2 on the joint groups), without ``poly_bf16``,
+with ``poly_econ=False, poly_bf16=False`` (K5 in the first pass) and
+preset ``default`` with ``poly_impl="pallas", poly_bf16=False`` (K5 in
+split TF32 on (100, 98) groups in the first pass, (60, 98) in the
+second): one warmup, then ``runs`` (default 3; 0 skips the paths) timed
+runs each, and prints one ``[ab]`` line per path with the walls, the best
+wall, the peak device memory, the PSNR of ``basic`` and ``deno``, K1's,
+K2's, K3's and K5's device time in one more run (CUDA events around each launch,
 ``chip_smoke.timed_run``) and a SHA-256 of ``deno`` and of ``basic``.
 Then times K3 (``dense_dist``) on one dt = 0 plane at the all-rows
 search's four 480p shapes (stage 0 levels 0, 1, 2 and stage 1 level 0,
@@ -27,7 +29,8 @@ each stage: ``chip_smoke.k1_cases``), then K2
 (100, 49) and of (60, 98)), on the same without poly_bf16, on preset
 ``default``'s (100, 98) with and without it, on the ``couple_channels``
 shapes (4096 groups, one a site), and K5 (``poly_filter``) on both routes
-with and without poly_bf16, with CUDA events over several launches, one
+with and without poly_bf16 and on preset ``default``'s (100, 98) with and
+without it, with CUDA events over several launches, one
 ``[ab]`` line each.  To compare two trees, unpack the
 parent's ``vnlb_tpu_torch`` into a directory that .gitignore lists and run
 parent, change, change, parent in one call, e.g.
@@ -79,7 +82,10 @@ def main():
              ("api_couple", vt.default_config(20.0, couple_channels=True)),
              ("api_f32", vt.default_config(20.0, poly_bf16=False)),
              ("poly_econ_off_f32",
-              vt.default_config(20.0, poly_econ=False, poly_bf16=False)))
+              vt.default_config(20.0, poly_econ=False, poly_bf16=False)),
+             ("default_pallas_f32",
+              vt.default_config(20.0, preset="default", poly_impl="pallas",
+                                poly_bf16=False)))
     for name, cfg in paths:
         if not runs:
             break
@@ -91,7 +97,8 @@ def main():
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         _, per = timed_run(vt, noisy, dev, cfg, None)
         dev_ms = {}
-        for kern in ("patch_dist", "econ_filter", "dense_dist"):
+        for kern in ("patch_dist", "econ_filter", "dense_dist",
+                     "poly_filter"):
             vals = [v for k, v in per.items() if k[0] == kern]
             dev_ms[kern] = (sum(v[0] for v in vals), sum(v[1] for v in vals))
         sha = {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()[:16]
@@ -108,6 +115,8 @@ def main():
               f"k2_launches={dev_ms['econ_filter'][1]} "
               f"k3_device_ms={dev_ms['dense_dist'][0]:.2f} "
               f"k3_launches={dev_ms['dense_dist'][1]} "
+              f"k5_device_ms={dev_ms['poly_filter'][0]:.2f} "
+              f"k5_launches={dev_ms['poly_filter'][1]} "
               f"sha_deno={sha['deno']} sha_basic={sha['basic']}", flush=True)
         del deno, basic
     from vnlb_tpu_torch.ops import color
@@ -169,7 +178,10 @@ def main():
              ("k5_100x49_f32", poly_filter, 12288, 100, 49,
               api.stage(0).replace(**f32), 3),
              ("k5_60x98_f32", poly_filter, 12288, 60, 98,
-              api.stage(1).replace(**f32), 2)]
+              api.stage(1).replace(**f32), 2),
+             ("k5_100x98", poly_filter, 12288, 100, 98, dflt0, 3),
+             ("k5_100x98_f32", poly_filter, 12288, 100, 98,
+              dflt0.replace(**f32), 2)]
     for name, fn, g, k, p, cfg, reps in cases:
         base = rng.normal(size=(g, 1, p)).astype(np.float32) * 30
         xc, xn = (torch.from_numpy(base + rng.normal(size=(g, k, p))

@@ -37,9 +37,15 @@ together, and preset ``default`` with ``couple_channels=True`` (each
 ``poly_impl="pallas"`` mode beside ``vnlb_tpu``'s plain version of the
 same function, as above): chip_smoke.py's ``REF_SMALL_MODES`` constants
 ``poly_pallas_f32``, ``couple_f32``, ``poly_pallas_couple_f32`` and
-``default_couple``.  Section ``f5_480p`` (~5 minutes, ~14 GB)
-prints ``vnlb_tpu``'s PSNRs of noisy, basic and deno and the port's of
-basic and deno for preset ``default`` with ``couple_channels=True``
+``default_couple``.  Section ``small_default`` prints the same for preset
+``default`` in four filter modes: ``poly_impl="pallas"`` with and without
+``poly_bf16`` (beside ``vnlb_tpu``'s plain version), ``poly_bf16=False``
+and ``poly_econ=False, poly_bf16=False``: chip_smoke.py's
+``REF_SMALL_MODES`` constants ``default_pallas``, ``default_pallas_f32``,
+``default_f32`` and ``default_econ_off_f32``.  Section ``f5_480p`` (~5
+minutes, ~14 GB) prints ``vnlb_tpu``'s PSNRs of noisy, basic and deno and
+the port's of basic and deno for preset ``default`` with
+``couple_channels=True``
 (``vnlb_tpu`` with ``topk="stream"``, equal to the one-shot top-K with far
 less peak memory) on the small clip and on rows 208:272 (``F5_ROWS``) of
 chip_smoke.py's 480p clip (``synthetic_video(5, 480, 854, seed=0)``, noise
@@ -47,7 +53,8 @@ seed 1) at full width: chip_smoke.py's ``REF_BAND_DEFAULT_COUPLE``, the
 witness of its ``e2e_default_couple`` gain floor (``E2E_GAIN_DB``).
 Arguments name the sections to run (``flows``, ``compat``,
 ``self_match``, ``modes``, ``oracle``, ``small_f32``, ``small_couple``,
-``small_f5``, ``f5_480p``; all but ``f5_480p`` by default).
+``small_f5``, ``small_default``, ``f5_480p``; all but ``f5_480p`` by
+default).
 """
 
 import os
@@ -333,6 +340,21 @@ def small_couple():
           f"{compute_psnr(d.numpy(), clean):.6f} dB", flush=True)
 
 
+def _small_modes(tag, modes):
+    clean = synthetic_video(5, 96, 112, seed=0)
+    noisy = add_noise(clean, 20.0, seed=1)
+    for name, kw, jkw in modes:
+        jd, jb, _ = vnlb_tpu.denoise(noisy, 20.0,
+                                     cfg=vnlb_tpu.default_config(20.0, **jkw))
+        d, b, _ = vt.denoise(noisy, 20.0, cfg=vt.default_config(20.0, **kw),
+                             device="cpu")
+        print(f"[{tag}] {name}: vnlb_tpu {jkw}: basic / deno "
+              f"{compute_psnr(np.asarray(jb), clean):.6f} / "
+              f"{compute_psnr(np.asarray(jd), clean):.6f} dB; port {kw}: "
+              f"{compute_psnr(b.numpy(), clean):.6f} / "
+              f"{compute_psnr(d.numpy(), clean):.6f} dB", flush=True)
+
+
 # chip_smoke.py's name, the port's config, vnlb_tpu's (poly_impl="pallas"
 # held to the plain version of the same function)
 SMALL_F5 = (
@@ -349,18 +371,28 @@ SMALL_F5 = (
 
 
 def small_f5():
-    clean = synthetic_video(5, 96, 112, seed=0)
-    noisy = add_noise(clean, 20.0, seed=1)
-    for name, kw, jkw in SMALL_F5:
-        jd, jb, _ = vnlb_tpu.denoise(noisy, 20.0,
-                                     cfg=vnlb_tpu.default_config(20.0, **jkw))
-        d, b, _ = vt.denoise(noisy, 20.0, cfg=vt.default_config(20.0, **kw),
-                             device="cpu")
-        print(f"[small_f5] {name}: vnlb_tpu {jkw}: basic / deno "
-              f"{compute_psnr(np.asarray(jb), clean):.6f} / "
-              f"{compute_psnr(np.asarray(jd), clean):.6f} dB; port {kw}: "
-              f"{compute_psnr(b.numpy(), clean):.6f} / "
-              f"{compute_psnr(d.numpy(), clean):.6f} dB", flush=True)
+    _small_modes("small_f5", SMALL_F5)
+
+
+# preset default (pt=2 in the first pass: (100, 98) groups) in the filter
+# modes that take K5 or split TF32: chip_smoke.py's name, the port's config,
+# vnlb_tpu's (poly_impl="pallas" held to the plain version, as above)
+SMALL_DEFAULT = (
+    ("default_pallas", dict(preset="default", poly_impl="pallas"),
+     dict(preset="default", poly_econ=False, poly_fused=False)),
+    ("default_pallas_f32",
+     dict(preset="default", poly_impl="pallas", poly_bf16=False),
+     dict(preset="default", poly_econ=False, poly_fused=False,
+          poly_bf16=False)),
+    ("default_f32", dict(preset="default", poly_bf16=False),
+     dict(preset="default", poly_bf16=False)),
+    ("default_econ_off_f32",
+     dict(preset="default", poly_econ=False, poly_bf16=False),
+     dict(preset="default", poly_econ=False, poly_bf16=False)))
+
+
+def small_default():
+    _small_modes("small_default", SMALL_DEFAULT)
 
 
 # the band of chip_smoke.py's 480p clip that f5_480p denoises: 64 of every
@@ -400,7 +432,7 @@ def f5_480p():
 SECTIONS = dict(flows=flows, compat=compat, self_match=self_match,
                 modes=modes, oracle=oracle, small_f32=small_f32,
                 small_couple=small_couple, small_f5=small_f5,
-                f5_480p=f5_480p)
+                small_default=small_default, f5_480p=f5_480p)
 
 if __name__ == "__main__":
     torch.set_num_threads(4)

@@ -3,7 +3,9 @@ package on the CPU: the eigen modes (xla, jacobi, rational), the poly
 modes (econ, two-factor on the ``poly_impl="pallas"`` and ``poly_econ=False``
 routes, fused), ``couple_channels``, the ``poly_impl="pallas"`` and
 ``couple_channels`` modes without ``poly_bf16``, preset ``default`` with
-``couple_channels``, and ``deno="ave"``; plus the batched
+``couple_channels``, with ``poly_impl="pallas"`` (with and without
+``poly_bf16``), without ``poly_bf16`` and with ``poly_econ=False,
+poly_bf16=False``, and ``deno="ave"``; plus the batched
 Jacobi eigenvalues and the Cholesky inverse.  Filtered patches are
 compared, not eigenvectors (signs and degenerate subspaces differ)."""
 
@@ -35,7 +37,10 @@ torch.set_num_threads(2)
 # couple_channels groups, stage 0 / 1).  Without poly_bf16 (the "_f32"
 # modes, no bf16 gate) the measured rms is 1.3e-6 / 1.7e-6 (poly_pallas),
 # 2.3e-6 / 5.0e-6 (couple) and 1.3e-6 / 2.3e-6 (poly_pallas_couple), stage
-# 0 / 1; preset default's joint econ groups 3.4e-4 / 7.3e-4.
+# 0 / 1; preset default's joint econ groups 3.4e-4 / 7.3e-4.  Preset
+# default's (100, 98) first pass: poly_impl="pallas" 5.5e-4 / 3.1e-3 (bf16
+# gate), without poly_bf16 1.3e-6 / 1.7e-6; poly_bf16 off (econ) 1.7e-6 /
+# 2.9e-6; poly_econ and poly_bf16 off 1.3e-6 / 3.1e-6.
 MODES = {
     "xla": (dict(eig_method="xla"), None, 1e-4),
     "jacobi": (dict(eig_method="jacobi"), None, 1e-4),
@@ -59,6 +64,16 @@ MODES = {
              poly_bf16=False), 1e-4),
     "default_couple": (dict(preset="default", couple_channels=True), None,
                        5e-3),
+    "default_pallas": (dict(preset="default", poly_impl="pallas"),
+                       dict(preset="default", poly_econ=False,
+                            poly_fused=False), 2e-2),
+    "default_pallas_f32": (dict(preset="default", poly_impl="pallas",
+                                poly_bf16=False),
+                           dict(preset="default", poly_econ=False,
+                                poly_fused=False, poly_bf16=False), 1e-4),
+    "default_f32": (dict(preset="default", poly_bf16=False), None, 1e-4),
+    "default_econ_off_f32": (dict(preset="default", poly_econ=False,
+                                  poly_bf16=False), None, 1e-4),
 }
 
 

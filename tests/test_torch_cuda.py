@@ -481,14 +481,15 @@ def test_poly_filter_kernel_matches_plain(card, stage, bf16):
 
 # K5's tensor-core shapes: both routes at a chunk's 12,288 groups, ragged
 # widths and group counts (q = 37, 33, 128; 777, 535, 300 groups), the
-# right route at width 128 and the left route at width 64
+# right route at width 128 (preset default's (100, 98) at a chunk too, and
+# (162, 98), the most rows its covariance phase holds) and the left route
+# at width 64
 K5_TC_SHAPES = [(1, 60, 98, 12288), (0, 100, 49, 12288), (1, 37, 98, 777),
                 (0, 64, 33, 535), (1, 16, 128, 300), (0, 100, 98, 300),
-                (1, 20, 49, 300)]
-# the shapes whose f32 buffers exceed the tensor-core design's shared
-# memory: the right route takes the shared-memory design, the left route
-# the batched one
-K5_F32_SMEM = {(16, 128): "tcb", (100, 98): "smem"}
+                (1, 20, 49, 300), (0, 100, 98, 12288), (0, 162, 98, 300)]
+# the shape whose f32 buffers exceed the tensor-core design's shared
+# memory: a left route, on the batched design
+K5_F32_DESIGN = {(16, 128): "tcb"}
 
 
 @pytest.mark.cuda
@@ -496,13 +497,14 @@ K5_F32_SMEM = {(16, 128): "tcb", (100, 98): "smem"}
 @pytest.mark.parametrize("stage,k,p,g", K5_TC_SHAPES)
 def test_poly_filter_tc_shapes_match_plain(card, stage, k, p, g, bf16):
     """K5's tensor-core design (split TF32 without poly_bf16; for
-    K5_F32_SMEM's f32 shapes the design named there) against the plain
+    K5_F32_DESIGN's f32 shape the design named there) against the plain
     version, at chip_smoke.py's K5 tolerance (rms / scale < 2e-2) and 1e-4
     in f32; a repeat run is bitwise equal and each call is one launch."""
     cfg = vt.default_config(20.0).stage(stage).replace(poly_bf16=bf16)
     # split TF32 without poly_bf16, except where its f32 buffers do not fit
     assert k5.design(k, p, bf16) == (
-        K5_F32_SMEM[k, p] if not bf16 and (k, p) in K5_F32_SMEM else "tc")
+        K5_F32_DESIGN[k, p] if not bf16 and (k, p) in K5_F32_DESIGN
+        else "tc")
     xc, xn = _groups(np.random.default_rng(k * p + g + 1), g, k, p, card)
     before = poly_filter.launches
     got = poly_filter(xc, xn, cfg)
@@ -518,7 +520,8 @@ def test_poly_filter_tc_shapes_match_plain(card, stage, k, p, g, bf16):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,p", [(100, 49), (60, 98), (37, 98), (64, 33),
                                  (16, 128), (100, 98), (20, 49), (100, 147),
-                                 (60, 294), (65, 98)])
+                                 (60, 294), (65, 98), (162, 98), (163, 98),
+                                 (128, 128), (300, 49)])
 def test_poly_tc_plan_matches_wrapper(card, k, p):
     """The kernel library's plan of K5's tensor-core design, with bf16
     operands and in split TF32, equals the wrapper's
@@ -562,6 +565,29 @@ def test_poly_filter_tcb_matches_plain(card, stage, k, p, g, bf16):
     assert torch.isfinite(got).all()
     assert torch.equal(got, again)
     assert _rel_rms(got, want) < (2e-2 if bf16 else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,p", [(100, 98), (128, 128), (300, 49)])
+def test_poly_filter_smem_right_f32(card, k, p):
+    """K5's shared-memory design on right routes in f32: forced at preset
+    default's (100, 98) (``smem_design=True``, which the card's checks
+    time beside the tensor-core design), and where it is the design (p =
+    128; xc of 300 rows): against the plain version within 1e-4, bitwise
+    on repeat, one launch of it a call."""
+    cfg = vt.default_config(20.0).stage(0).replace(poly_bf16=False)
+    assert k5.design(k, p, False) == ("tc" if (k, p) == (100, 98)
+                                      else "smem")
+    xc, xn = _groups(np.random.default_rng(k + p), 300, k, p, card)
+    before = poly_filter.by_design["smem"]
+    got = k5.poly_filter_kernel(xc, xn, cfg, smem_design=True)
+    again = k5.poly_filter_kernel(xc, xn, cfg, smem_design=True)
+    want = poly_filter_plain(xc, xn, cfg)
+    torch.cuda.synchronize()
+    assert poly_filter.by_design["smem"] == before + 2
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    assert _rel_rms(got, want) < 1e-4
 
 
 @pytest.mark.cuda
@@ -635,18 +661,21 @@ def test_filter_kernels_refuse_degree_beyond_tables(card, which):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["preset_default", "poly_pallas",
-                                  "poly_pallas_couple"])
+                                  "poly_pallas_couple", "default_pallas_f32"])
 def test_filter_paths_launch_kernels(card, name):
     """The default preset (w_s=27, K2 on K=100, p=98 groups),
-    poly_impl="pallas" (K5 in both passes, K2 never) and poly_impl="pallas"
-    with couple_channels (every K5 launch on the batched design) run on
-    the card."""
+    poly_impl="pallas" (K5 in both passes, K2 never), poly_impl="pallas"
+    with couple_channels (every K5 launch on the batched design) and the
+    default preset with poly_impl="pallas" in split TF32 (every K5 launch,
+    (100, 98) and (60, 98), on the tensor-core design) run on the card."""
     clean = synthetic_video(5, 96, 112, seed=0)
     noisy = add_noise(clean, 20.0, seed=1)
-    cfg = (vt.default_config(20.0, preset="default")
-           if name == "preset_default" else
-           vt.default_config(20.0, poly_impl="pallas",
-                             couple_channels=name == "poly_pallas_couple"))
+    cfg = {"preset_default": vt.default_config(20.0, preset="default"),
+           "default_pallas_f32": vt.default_config(
+               20.0, preset="default", poly_impl="pallas", poly_bf16=False)
+           }.get(name) or vt.default_config(
+               20.0, poly_impl="pallas",
+               couple_channels=name == "poly_pallas_couple")
     for c in (patch_dist, econ_filter, patch_gather, poly_filter):
         c.launches = 0
     econ_filter.by_design.update(tc=0, tcw=0, smem=0)
@@ -660,6 +689,8 @@ def test_filter_paths_launch_kernels(card, name):
         assert poly_filter.launches > 0 and econ_filter.launches == 0
     if name == "poly_pallas_couple":
         assert poly_filter.by_design["tcb"] == poly_filter.launches
+    if name == "default_pallas_f32":
+        assert poly_filter.by_design["tc"] == poly_filter.launches
     again, _, _ = vt.denoise(noisy, 20.0, cfg=cfg, device=card)
     assert torch.equal(deno, again)
     assert compute_psnr(deno.cpu().numpy(), clean) > \

@@ -57,13 +57,15 @@ def test_tc_refuses(k, p, want):
 
 @pytest.mark.parametrize("k,p,want", [
     (100, 49, "tc"), (60, 98, "tc"), (37, 98, "tc"), (16, 128, "tcb"),
-    (100, 147, "tcb"), (60, 294, "tcb")])
+    (100, 147, "tcb"), (60, 294, "tcb"), (100, 98, "tc"),
+    (128, 128, "smem")])
 def test_without_bf16_takes_smem(k, p, want):
     """poly_bf16 off: the tensor-core design in split TF32 where its f32
-    buffers fit (the right route's (100, 49), the left route's (60, 98)
-    and (37, 98)); the left routes it refuses, p = 128 (five 128 x 132
-    f32 buffers) and the couple_channels groups, take the batched design
-    (the shared-memory design keeps only right routes)."""
+    buffers fit (the right route's (100, 49) and (100, 98), the left
+    route's (60, 98) and (37, 98)); the left routes it refuses, p = 128
+    (five 128 x 132 f32 buffers) and the couple_channels groups, take the
+    batched design; the shared-memory design keeps only right routes (p =
+    128)."""
     assert design(k, p, False) == want
 
 
@@ -79,9 +81,10 @@ def test_preset_shapes_take_tc(preset, stage):
     joint = vt.default_config(20.0, preset=preset,
                               couple_channels=True).stage(stage)
     assert design(k, 3 * p, joint.poly_bf16) == "tcb"
-    # without poly_bf16: split TF32 except the right route at p = 98 (its
-    # four f32 buffers and Q exceed 220 KB); couple_channels batched
-    assert design(k, p, False) == ("smem" if (k, p) == (100, 98) else "tc")
+    # without poly_bf16: split TF32 (the right route at p = 98, stage 0
+    # of presets default, exp and sss, keeps Q in the gate's fifth f32
+    # buffer: 224,640 bytes); couple_channels batched
+    assert design(k, p, False) == "tc"
     assert design(k, 3 * p, False) == "tcb"
 
 
@@ -99,10 +102,15 @@ def _fbuf(p):
 
 
 @pytest.mark.parametrize("k,p,w,want", [
-    # right route: four f32 buffers (56 x 60) and Q (64 x 64 f32)
-    (100, 49, 64, 4 * _fbuf(49) + 64 * 64 * 4),
+    # right route: the gate's five f32 buffers (56 x 60), Q in the fifth
+    (100, 49, 64, 5 * _fbuf(49)),
     (64, 33, 64, 64 * 68 * 4 + _part(64, 64)),
     (250, 49, 64, 250 * 68 * 4 + _part(64, 64)),  # xc of 250 rows
+    # the right route at p = 98 (presets default, exp, sss, stage 0): five
+    # buffers of 104 x 108, Q in the fifth; xc of 162 rows is the most the
+    # covariance phase holds at width 128
+    (100, 98, 128, 5 * _fbuf(98)),
+    (162, 98, 128, 162 * 132 * 4 + _part(128, 128)),
     # left route: the gate's five f32 buffers of 104 x 108 (224,640 of the
     # 225,280 bytes a width-128 block is given)
     (60, 98, 128, 5 * _fbuf(98)),
@@ -119,12 +127,15 @@ def test_tc_smem_layout_f32(k, p, w, want):
 
 
 @pytest.mark.parametrize("k,p,want", [
-    (100, 98, "smem"), (16, 128, "tcb"), (100, 147, "tcb"), (60, 294, "tcb"),
-    (65, 98, "tcb"), (300, 49, "smem")])
+    (128, 128, "smem"), (16, 128, "tcb"), (100, 147, "tcb"), (60, 294, "tcb"),
+    (65, 98, "tcb"), (300, 49, "smem"), (163, 98, "smem"), (300, 98, "smem"),
+    (200, 128, "smem")])
 def test_tc_refuses_f32(k, p, want):
-    """Split TF32 beyond the tensor-core design: the right route at p =
-    98, p = 128, couple_channels, a left route with k > 64, xc of 300
-    rows; the left routes among them take the batched design."""
+    """Split TF32 beyond the tensor-core design: p = 128 (the right route
+    of ps = 8, pt = 2 with npatches >= 128), couple_channels, a left route
+    with k > 64, xc of more rows than the covariance phase holds (300 at
+    p = 49, 163 and 300 at p = 98); the left routes among them take the
+    batched design, the right routes the shared-memory design."""
     assert tc_smem_bytes(k, p, False) == 0
     assert design(k, p, False) == want
 

@@ -45,7 +45,13 @@
 // bytes a width-128 block is given (padded to 128 rows they would not
 // fit).  The f32 state (the gate's S^3 and S^5, the T_j pair, the z_j pair
 // and their sum) lives in the accumulator registers of the thread that
-// computed it; the right route keeps Q in shared memory (f32, per thread).
+// computed it; the right route keeps Q in shared memory in f32: under bf16
+// after the four operand buffers, one column per thread (W x W floats); in
+// split TF32 in the fifth operand buffer, which the gate leaves dead, at
+// its own layout (round_up(p, 8) rows of round_up(p, 8) + 4 floats, the
+// square that store_colT reads), so that the right route at p = 98 needs
+// no more than the gate's 224,640 bytes (W x W floats after four buffers
+// would take 245,248).
 // The covariance and the left route's z_0 = xn W take f32 operands and
 // run on CUDA cores (econ_tc.cuh `syrk`); the right route's out = xn st(F)
 // takes xn in f32, as three bf16 parts (hi + mid + lo = xn exactly),
@@ -65,16 +71,17 @@
 // p product is one launch over many blocks, through a device workspace.
 //
 // The shared-memory design (`poly_filter_kernel`) takes the rest, the
-// right-route shapes in split TF32 whose f32 buffers do not fit one
-// tensor-core block (the right route at p = 98, p = 128; no preset
-// reaches them), and is the comparison the card's checks time beside the
-// other two (`smem_design`).  Every product on CUDA cores with the 2x2
-// register tiles of K2 (group_mm.cuh), with the five p x p buffers (Ah, S /
-// W and three products) and the patch blocks placed in shared memory by
-// priority.  The accumulator of either route (Q, p x p <= K x p, or the K
-// x p sum) lives in the group's own output rows; p x p buffers beyond
-// shared memory spill to a per-block workspace under a persistent grid, as
-// in K2.
+// right routes whose buffers do not fit one tensor-core block: p = 128 in
+// split TF32 (ps = 8, pt = 2 with npatches >= 128) and xc of more rows
+// than the covariance phase holds (npatches = 300 at p = 49, K > 162 at p
+// = 98); no preset reaches them.  It is also the comparison the card's
+// checks time beside the other two (`smem_design`).  Every product on
+// CUDA cores with the 2x2 register tiles of K2 (group_mm.cuh), with the
+// five p x p buffers (Ah, S / W and three products) and the patch blocks
+// placed in shared memory by priority.  The accumulator of either route
+// (Q, p x p <= K x p, or the K x p sum) lives in the group's own output
+// rows; p x p buffers beyond shared memory spill to a per-block workspace
+// under a persistent grid, as in K2.
 
 #include <type_traits>
 
@@ -290,7 +297,7 @@ struct TcLayout {
   int width, bytes, f32;
   int part1;             // the covariance's syrk scratch, after xc
   int xnt, wf, part3;    // left: xn^T, W (f32), the xn W syrk scratch
-  int qs;                // right: Q, f32, one column per thread
+  int qs;                // right under bf16: Q, f32, one column per thread
 };
 
 __host__ __device__ inline TcLayout tc_layout(int K, int p, bool f32) {
@@ -310,8 +317,11 @@ __host__ __device__ inline TcLayout tc_layout(int K, int p, bool f32) {
     n = lmax(n, L.part3 + 2LL * 64 * (W + 8) * 4);
     n = lmax(n, buf + 2 * 64 * row);  // z_j on the A side by turns
   } else {
-    L.qs = (int)(4 * buf);
-    n = lmax(n, L.qs + (long long)W * W * 4);
+    // Q after four buffers under bf16; in split TF32 in the fifth
+    if (!f32) {
+      L.qs = (int)(4 * buf);
+      n = lmax(n, L.qs + (long long)W * W * 4);
+    }
     // xn: three bf16 parts, or f32
     n = lmax(n, buf + (f32 ? 1 : 3) * tc::round_up(K, 16) * row);
   }
@@ -450,8 +460,16 @@ poly_tc_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
     if (!left) {
       // right: Q = sum_j coef_j T_j(Ah), T_j = 2 Ah st(T_{j-1}) - T_{j-2},
       // each product summed from -T_{j-2} / 2 and doubled; st(T) on the B
-      // side in S_colT / S2_row by turns, Q in shared memory
-      float* Qs = reinterpret_cast<float*>(smraw + L.qs);
+      // side in S_colT / S2_row by turns, Q in shared memory (the note at
+      // the top): element i of the thread at Qs[qat(i)], where `live(i)`
+      float* Qs = kF32 ? reinterpret_cast<float*>(S3_colT)
+                       : reinterpret_cast<float*>(smraw + L.qs);
+      auto qat = [&](int i) {
+        return kF32 ? ps.row(i) * op.ld + ps.col(i) : i * NT + tid;
+      };
+      auto live = [&](int i) {
+        return !kF32 || (ps.row(i) < op.rows && ps.col(i) < op.rows);
+      };
       T* tb0 = S_colT;
       T* tb1 = S2_row;
       float tp[NS], tcur[NS];
@@ -460,7 +478,7 @@ poly_tc_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
         const float d = tc::diag(ps, i, p), a = own(Ah, i);
         tp[i] = d;
         tcur[i] = a;
-        Qs[i * NT + tid] = coef[0] * d + coef[1] * a;
+        if (live(i)) Qs[qat(i)] = coef[0] * d + coef[1] * a;
       }
       op.store_colT(tb0, ps, [&](int i) { return tcur[i]; });
       __syncthreads();
@@ -473,7 +491,7 @@ poly_tc_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
 #pragma unroll
         for (int i = 0; i < NS; ++i) {
           const float tn = 2.f * tp[i];
-          Qs[i * NT + tid] += cj * tn;
+          if (live(i)) Qs[qat(i)] += cj * tn;
           tp[i] = tcur[i];
           tcur[i] = tn;
         }
@@ -490,7 +508,7 @@ poly_tc_kernel(const float* __restrict__ xc, const float* __restrict__ xn,
       for (int i = 0; i < NS; ++i)
         tcur[i] = 0.5f * (own(S_row, i) + tc::diag(ps, i, p));
       op.store_row(S_row, ps, [&](int i) { return tcur[i]; });
-      op.store_colT(tb0, ps, [&](int i) { return Qs[i * NT + tid]; });
+      op.store_colT(tb0, ps, [&](int i) { return Qs[qat(i)]; });
       __syncthreads();
       op.template mma_frag<W, W, NT>(P, S_row, op.rows, tb0);
       op.store_colT(Ah, ps, [&](int i) { return P[i]; });

@@ -10,9 +10,9 @@ The kernel has three designs (``design``), each CUDA code of its own:
 "tc", one block per group on tensor cores, p padded to 64 (two blocks per
 SM) or 128 (one block per SM) by ``tc_width``, for every shape whose
 buffers fit one SM (``tc_smem_bytes``; the left route, K < p, needs K <=
-64): the presets' groups, the right route's (100, 49) and the left
-route's (60, 98), bf16 operands under ``poly_bf16`` and split TF32
-without it (csrc/econ_tc.cuh ``OpTf32``).  "tcb", the batched design, for
+64): the presets' groups, the right route's (100, 49) and (100, 98) and
+the left route's (60, 98), bf16 operands under ``poly_bf16`` and split
+TF32 without it (csrc/econ_tc.cuh ``OpTf32``).  "tcb", the batched design, for
 every left-route shape "tc" refuses (``tcb_takes``): the joint groups of
 ``couple_channels`` ((100, 147), (60, 294), (100, 294), (60, 147)), whose
 gate chain at p = 294 needs five or more 294 x 294 matrices (1.3 MB),
@@ -20,11 +20,13 @@ beyond one SM, left routes with K > 64 and the f32 (16, 128); each p x p
 product of a sub-batch of groups is one launch over its 64 x 64 output
 tiles (in split TF32 a gate product, symmetric, over those on and above
 the diagonal) on tensor cores, through a device workspace the wrapper
-allocates (``tcb_plan``: at most ``TCB_WS_BYTES``).  "smem", the shared-memory
-design on CUDA cores, for the right-route f32 shapes "tc" refuses (the
-right route at p = 98, p = 128) and as the comparison the card's checks
-time beside the others (``smem_design``).  ``poly_filter.by_design``
-counts the launches of each.
+allocates (``tcb_plan``: at most ``TCB_WS_BYTES``).  "smem", the
+shared-memory design on CUDA cores, for the right routes "tc" refuses
+(p = 128 in split TF32: ps = 8, pt = 2 with npatches >= 128; xc of more
+rows than a block holds: npatches = 300 at p = 49; no preset reaches
+them) and as the comparison the card's checks time beside the others
+(``smem_design``).  ``poly_filter.by_design`` counts the launches of
+each.
 """
 
 from __future__ import annotations
@@ -69,8 +71,9 @@ def tc_smem_bytes(k: int, p: int, rnd: bool = True) -> int:
     largest of its phases.  The covariance (xc and the syrk scratch); the
     gate (five operand buffers); left route (k < p): one buffer, xn^T, W
     in f32 and the xn W scratch, then z_j in two buffers of 64 rows; right
-    route: four buffers and Q (f32), then one buffer and xn (three bf16
-    parts, or f32)."""
+    route: under ``rnd`` four buffers and Q (w x w f32), in split TF32 Q
+    in the fifth buffer (the gate's five), then one buffer and xn (three
+    bf16 parts, or f32)."""
     w = tc_width(p)
     if not w or k < 1 or p < 1 or (k < p and k > 64):
         return 0
@@ -82,8 +85,9 @@ def tc_smem_bytes(k: int, p: int, rnd: bool = True) -> int:
         n = max(n, buf + p * 68 * 4 + p * ldk * 4 + 2 * 64 * (w + 8) * 4,
                 buf + 2 * 64 * row)
     else:
-        n = max(n, 4 * buf + w * w * 4,
-                buf + (3 if rnd else 1) * _round_up(k, 16) * row)
+        n = max(n, buf + (3 if rnd else 1) * _round_up(k, 16) * row)
+        if rnd:
+            n = max(n, 4 * buf + w * w * 4)
     return n if n <= TC_SMEM_MAX[w] else 0
 
 

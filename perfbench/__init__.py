@@ -1,0 +1,1 @@
+"""The benchmark of vnlb_tpu_torch: ``python3 perfbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>``."""

@@ -1,0 +1,11 @@
+"""filter.ms_per_frame: device milliseconds of the operations launched
+inside the Bayes filter (`pipeline.bayes_denoise`), per frame completed
+in the traced window."""
+
+RANGE = "ops.bayes"
+
+
+def read(rec):
+    if rec.busy_s <= 0 or RANGE not in rec.in_range or rec.frames <= 0:
+        return None
+    return 1e3 * rec.in_range[RANGE] / rec.frames

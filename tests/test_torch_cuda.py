@@ -1042,3 +1042,44 @@ def test_agg_patches_repeat_bitwise_on_card(card):
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     c = run("cpu")
     assert torch.equal(a[0].cpu(), c[0]) and torch.equal(a[1].cpu(), c[1])
+
+
+# the program's sync spans in one API-default call on a 5x96x112 numpy
+# clip: the clip's upload, per pass the sites' upload, three colour
+# matrices (two rgb -> yuv, one yuv -> rgb) and one dense and one gather
+# chunk (each an inf scalar, a filter call's K2 tables and a scatter's
+# counts), and the final wait
+SYNC_SPANS = {"vnlb.sync.inputs": 1, "vnlb.sync.sites": 2,
+              "vnlb.sync.color_matrix": 6, "vnlb.sync.dense_inf": 2,
+              "vnlb.sync.gather_inf": 2, "vnlb.sync.scatter_counts": 4,
+              "vnlb.sync.filter_consts": 4, "vnlb.sync.call_end": 1}
+SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+
+
+@pytest.mark.cuda
+def test_every_sync_of_a_call_lies_in_a_sync_span(card):
+    """Every stream or device synchronize a ``denoise`` call issues lies
+    inside one of the program's ``vnlb.sync.*`` spans, on the profiler's
+    host clock; the spans' count for this clip is pinned."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    noisy = add_noise(synthetic_video(5, 96, 112, seed=0), 20.0, seed=1)
+    vt.denoise(noisy, 20.0, device=card)          # the build, the allocator
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("test.call"):
+            vt.denoise(noisy, 20.0, device=card)
+    evs = [(e.name(), e.start_ns(), e.end_ns())
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CPU]
+    (call,) = [(s, e) for n, s, e in evs if n == "test.call"]
+    spans = [(n, s, e) for n, s, e in evs if n.startswith("vnlb.sync.")]
+    syncs = [(n, s, e) for n, s, e in evs
+             if n in SYNCS and call[0] <= s and e <= call[1]]
+    outside = [(n, s - call[0]) for n, s, e in syncs
+               if not any(s0 <= s and e <= e0 for _, s0, e0 in spans)]
+    assert syncs and not outside, outside
+    assert Counter(n for n, _, _ in spans) == SYNC_SPANS

@@ -15,6 +15,7 @@ from .config import VnlbConfig, default_config
 from .pipeline import KERNELS, Kernels, as_video, prep_flows, proc_nl
 from .streaming import host_inputs, pass_ctx, window_pass, windows
 from .utils.precision import full_f32
+from .utils.timer import span
 
 
 @full_f32()
@@ -50,9 +51,10 @@ def denoise(noisy, sigma: float, flows=None, clean=None,
     t0 = time.perf_counter()
     device = torch.device(device)
     cfg = cfg or default_config(sigma, preset=preset, verbose=verbose)
-    noisy_t = as_video(noisy, device)
-    fflow, bflow, zf = prep_flows(tuple(noisy_t.shape), flows, device)
-    clean_t = None if clean is None else as_video(clean, device)
+    with span("vnlb.sync.inputs"):
+        noisy_t = as_video(noisy, device)
+        fflow, bflow, zf = prep_flows(tuple(noisy_t.shape), flows, device)
+        clean_t = None if clean is None else as_video(clean, device)
     if verbose:
         print(f"[vnlb_tpu_torch] preset={cfg.preset} sigma={sigma}")
     basic = proc_nl(noisy_t, None, clean_t, fflow, bflow, cfg.stage(0),
@@ -60,7 +62,8 @@ def denoise(noisy, sigma: float, flows=None, clean=None,
     deno = proc_nl(noisy_t, basic, clean_t, fflow, bflow, cfg.stage(1),
                    zero_flow=zf, kernels=kernels)
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        with span("vnlb.sync.call_end"):
+            torch.cuda.synchronize(device)
     return deno, basic, time.perf_counter() - t0
 
 
@@ -139,9 +142,10 @@ def denoise_mod(noisy, sigma: float, flows=None, clean=None,
     t0 = time.perf_counter()
     device = torch.device(device)
     cfg = default_config(sigma, preset="iphone", verbose=verbose)
-    noisy_t = as_video(noisy, device)
-    fflow, bflow, zf = prep_flows(tuple(noisy_t.shape), flows, device)
-    clean_t = None if clean is None else as_video(clean, device)
+    with span("vnlb.sync.inputs"):
+        noisy_t = as_video(noisy, device)
+        fflow, bflow, zf = prep_flows(tuple(noisy_t.shape), flows, device)
+        clean_t = None if clean is None else as_video(clean, device)
 
     def run(basic, scfg):
         return proc_nl(noisy_t, basic, clean_t, fflow, bflow, scfg,
@@ -160,7 +164,8 @@ def denoise_mod(noisy, sigma: float, flows=None, clean=None,
     deno = run(basic, cfg.stage(1).replace(npatches=60, gamma=0.2,
                                            cpatches="basic"))
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        with span("vnlb.sync.call_end"):
+            torch.cuda.synchronize(device)
     return deno, basic, time.perf_counter() - t0
 
 

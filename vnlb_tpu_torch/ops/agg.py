@@ -22,6 +22,8 @@ from typing import Tuple
 
 import torch
 
+from ..utils.timer import span
+
 
 def agg_rows(acc: torch.Tensor, patches: torch.Tensor, rows: torch.Tensor,
              valid: torch.Tensor, bf16: bool = False) -> torch.Tensor:
@@ -56,21 +58,24 @@ def scatter_add_rows(acc: torch.Tensor, rows: torch.Tensor,
     n = rows.numel()
     if n == 0:
         return
-    srt, perm = torch.sort(rows, stable=True)
-    pos = torch.arange(n, device=rows.device)
-    new = torch.ones(n, dtype=torch.bool, device=rows.device)
-    new[1:] = srt[1:] != srt[:-1]
-    start = torch.cummax(torch.where(new, pos, torch.zeros_like(pos)),
-                         dim=0).values
-    rank = pos - start                       # occurrence rank, sorted order
-    order = perm[torch.sort(rank, stable=True).indices]
-    counts = torch.bincount(rank).tolist()
-    off = 0
-    for cnt in counts:
-        sel = order[off:off + cnt]
-        r = rows[sel]
-        acc[r] += upd[sel]
-        off += cnt
+    with span("vnlb.scatter.order"):
+        srt, perm = torch.sort(rows, stable=True)
+        pos = torch.arange(n, device=rows.device)
+        new = torch.ones(n, dtype=torch.bool, device=rows.device)
+        new[1:] = srt[1:] != srt[:-1]
+        start = torch.cummax(torch.where(new, pos, torch.zeros_like(pos)),
+                             dim=0).values
+        rank = pos - start                   # occurrence rank, sorted order
+        order = perm[torch.sort(rank, stable=True).indices]
+        with span("vnlb.sync.scatter_counts"):
+            counts = torch.bincount(rank).tolist()
+    with span("vnlb.scatter.rounds"):
+        off = 0
+        for cnt in counts:
+            sel = order[off:off + cnt]
+            r = rows[sel]
+            acc[r] += upd[sel]
+            off += cnt
 
 
 def agg_patches(deno: torch.Tensor, weights: torch.Tensor,

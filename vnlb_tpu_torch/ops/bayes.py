@@ -26,6 +26,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from ..config import StageConfig
+from ..utils.timer import span
 from .econ_filter import econ_filter
 from .eigh import jacobi_eigh
 from .poly_filter import poly_filter
@@ -70,37 +71,39 @@ def bayes_denoise(pnoisy: torch.Tensor, pbasic: Optional[torch.Tensor],
     pt, ps = cfg.pt, cfg.ps
     step2 = cfg.step == 1
 
-    # (B, K, c, p) -> (B, c, K, p) groups
-    xn = pnoisy.permute(0, 2, 1, 3).to(torch.float32)
-    cnoisy = xn.mean(dim=2, keepdim=True)
-    if step2:
-        if pbasic is None or flat is None:
-            raise ValueError("the second pass needs basic patches and flags")
-        xb = pbasic.permute(0, 2, 1, 3).to(torch.float32)
-        cbasic = xb.mean(dim=2, keepdim=True)
-        cnoisy = torch.where(flat[:, None, None, None], cbasic, cnoisy)
-        xb = xb - cbasic
-    xn = xn - cnoisy
+    with span("vnlb.filter.prep"):
+        # (B, K, c, p) -> (B, c, K, p) groups
+        xn = pnoisy.permute(0, 2, 1, 3).to(torch.float32)
+        cnoisy = xn.mean(dim=2, keepdim=True)
+        if step2:
+            if pbasic is None or flat is None:
+                raise ValueError("the second pass needs basic patches and "
+                                 "flags")
+            xb = pbasic.permute(0, 2, 1, 3).to(torch.float32)
+            cbasic = xb.mean(dim=2, keepdim=True)
+            cnoisy = torch.where(flat[:, None, None, None], cbasic, cnoisy)
+            xb = xb - cbasic
+        xn = xn - cnoisy
 
-    if cfg.cpatches == "noisy":
-        xc = xn
-    elif cfg.cpatches == "basic":
-        if not step2:
-            raise ValueError("cpatches='basic' requires step 2")
-        xc = xb
-    else:
-        raise ValueError(f"unknown cpatches [{cfg.cpatches}]")
+        if cfg.cpatches == "noisy":
+            xc = xn
+        elif cfg.cpatches == "basic":
+            if not step2:
+                raise ValueError("cpatches='basic' requires step 2")
+            xc = xb
+        else:
+            raise ValueError(f"unknown cpatches [{cfg.cpatches}]")
 
-    if cfg.couple_channels:
-        # one joint prior over the channels: groups of dimension c*p
-        def join(x):
-            return x.permute(0, 2, 1, 3).reshape(b, k, c * p)
+        if cfg.couple_channels:
+            # one joint prior over the channels: groups of dimension c*p
+            def join(x):
+                return x.permute(0, 2, 1, 3).reshape(b, k, c * p)
 
-        xc2, xn2, gc = join(xc), join(xn), 1
-        rank = min(cfg.rank, c * p)
-    else:
-        xc2, xn2, gc = xc.reshape(b * c, k, p), xn.reshape(b * c, k, p), c
-        rank = min(cfg.rank, p)
+            xc2, xn2, gc = join(xc), join(xn), 1
+            rank = min(cfg.rank, c * p)
+        else:
+            xc2, xn2 = xc.reshape(b * c, k, p), xn.reshape(b * c, k, p)
+            gc, rank = c, min(cfg.rank, p)
 
     def unjoin(xf):
         """(b*gc, k, p_eff) -> (B, c, K, p)."""
@@ -113,10 +116,11 @@ def bayes_denoise(pnoisy: torch.Tensor, pbasic: Optional[torch.Tensor],
             xf = _poly(xc2, xn2, k, cfg, econ_fn, poly_fn)
         else:
             xf = rational_filter(xc2, xn2, cfg)
-        # rank_var = full eigenvalue mass = trace(C) = ||Xc||^2 / K
-        trace = (xc2 * xc2).sum(dim=(1, 2)) / k
-        rank_var = trace.reshape(b, gc).mean(dim=1)
-        return _from_bcnp(unjoin(xf) + cnoisy, pt, ps), rank_var
+        with span("vnlb.filter.finish"):
+            # rank_var = full eigenvalue mass = trace(C) = ||Xc||^2 / K
+            trace = (xc2 * xc2).sum(dim=(1, 2)) / k
+            rank_var = trace.reshape(b, gc).mean(dim=1)
+            return _from_bcnp(unjoin(xf) + cnoisy, pt, ps), rank_var
 
     lam, coeff, basis, domain = _spectral_filter(xc2, cfg, rank)
     rank_var = lam.reshape(b, gc, -1).sum(dim=2).mean(dim=1)
@@ -134,7 +138,8 @@ def bayes_denoise(pnoisy: torch.Tensor, pbasic: Optional[torch.Tensor],
     else:
         z = torch.bmm(xn2, basis)
         xf = torch.bmm(z * coeff[:, None, :], basis.transpose(1, 2))
-    return _from_bcnp(unjoin(xf) + cnoisy, pt, ps), rank_var
+    with span("vnlb.filter.finish"):
+        return _from_bcnp(unjoin(xf) + cnoisy, pt, ps), rank_var
 
 
 def _wiener_coeff(lam: torch.Tensor, cfg: StageConfig) -> torch.Tensor:

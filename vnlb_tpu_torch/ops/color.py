@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.timer import span
+
 _S3 = 1.0 / np.sqrt(3.0)
 _S2 = 1.0 / np.sqrt(2.0)
 _S6 = np.sqrt(2.0) * 2.0 / np.sqrt(3.0)
@@ -30,7 +32,8 @@ YUV2RGB = np.array(
 def _mix(m: np.ndarray, video: torch.Tensor) -> torch.Tensor:
     """out[..., d, :, :] = sum_c m[d, c] * video[..., c, :, :], in f32
     elementwise products (no matmul unit, so no TF32)."""
-    mt = torch.as_tensor(m, dtype=video.dtype, device=video.device)
+    with span("vnlb.sync.color_matrix"):
+        mt = torch.as_tensor(m, dtype=video.dtype, device=video.device)
     chans = [sum(mt[d, c] * video[..., c, :, :] for c in range(3))
              for d in range(3)]
     return torch.stack(chans, dim=-3)

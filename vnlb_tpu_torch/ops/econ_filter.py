@@ -35,6 +35,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..utils.timer import span
 from .polyspec import econ_params
 from .polyspec import poly_filter_econ as econ_filter_plain
 
@@ -211,14 +212,15 @@ def tc_plan(k: int, p: int, kind: str = "tc",
 
 def _consts(cfg, k: int, p: int, device):
     ep = econ_params(cfg)
-    xs = torch.as_tensor(ep["xs"], device=device)
-    if k < p:
-        gmap, v0 = ep["gram_maps"]
-        proj = torch.as_tensor(gmap, device=device)
-        v0 = torch.as_tensor(v0, device=device)
-    else:
-        proj = torch.as_tensor(ep["pinv"], device=device)
-        v0 = None
+    with span("vnlb.sync.filter_consts"):
+        xs = torch.as_tensor(ep["xs"], device=device)
+        if k < p:
+            gmap, v0 = ep["gram_maps"]
+            proj = torch.as_tensor(gmap, device=device)
+            v0 = torch.as_tensor(v0, device=device)
+        else:
+            proj = torch.as_tensor(ep["pinv"], device=device)
+            v0 = None
     return ep, xs.contiguous(), proj.contiguous(), v0
 
 

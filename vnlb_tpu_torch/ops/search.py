@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..config import StageConfig
+from ..utils.timer import span
 from .patch_dist import patch_dist
 
 
@@ -197,14 +198,16 @@ def exec_search(video: torch.Tensor, sites: torch.Tensor,
 
     f = ts[None, :] + torch.arange(dt_lo, dt_hi + 1, device=dev)[:, None]
     valid = (f >= 0) & (f <= t_len - pt)                      # (n_dt, S)
-    inf = torch.tensor(float("inf"), device=dev)
+    with span("vnlb.sync.gather_inf"):
+        inf = torch.tensor(float("inf"), device=dev)
     cand = torch.where(valid[:, :, None], cand - cfg.offset, inf)
 
     # (S, n_dt*ws2) in enumeration order (dt, dy, dx); a stable ascending
     # sort lists equal values earliest position first, like lax.top_k
-    flat = cand.permute(1, 0, 2).reshape(s_cnt, n_dt * ws2)
-    svals, sel = torch.sort(flat, dim=1, stable=True)
-    vals, sel = svals[:, :k].contiguous(), sel[:, :k]
+    with span("vnlb.search.topk"):
+        flat = cand.permute(1, 0, 2).reshape(s_cnt, n_dt * ws2)
+        svals, sel = torch.sort(flat, dim=1, stable=True)
+        vals, sel = svals[:, :k].contiguous(), sel[:, :k]
 
     di, rem = sel // ws2, sel % ws2
     sy0, sx0 = (s.gather(1, di) for s in starts0)
@@ -223,4 +226,5 @@ def _apply_tau(vals: torch.Tensor, inds: torch.Tensor, cfg: StageConfig):
     if cfg.tau <= 0:
         return inds
     tau_n = cfg.tau / (255.0 ** 2) - cfg.offset
-    return torch.where(vals > tau_n, torch.full_like(inds, -1), inds)
+    with span("vnlb.search.topk"):
+        return torch.where(vals > tau_n, torch.full_like(inds, -1), inds)

@@ -49,6 +49,7 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 import torch
 
 from ..config import StageConfig
+from ..utils.timer import span
 from .dense_dist import dense_dist, frame_range
 from .patch_dist import patch_dist, patch_dist_tile, tile_oob
 from .search import _apply_tau, eff_dt_range, inv_norm, search_levels
@@ -133,20 +134,23 @@ def _stream_topk(planes: Iterator[torch.Tensor], k: int, ws2: int):
     plane's in the stable sort, so ties keep the one-shot order."""
     run_v = run_s = None
     for di, cand in enumerate(planes):
-        if run_v is None:
-            sv, si = torch.sort(cand, dim=1, stable=True)
-            run_s = si[:, :k].contiguous()
-        else:
-            code = di * ws2 + torch.arange(ws2, device=cand.device)
-            sv, si = torch.sort(torch.cat([run_v, cand], dim=1), dim=1,
-                                stable=True)
-            mc = torch.cat([run_s, code.expand(cand.shape[0], ws2)], dim=1)
-            run_s = mc.gather(1, si[:, :k])
-            del mc
-        # copies, and the sort's scratch freed before the next plane is
-        # computed: the running state is all this mode keeps
-        run_v = sv[:, :k].contiguous()
-        del sv, si, cand
+        # the plane is computed by ``enumerate``, outside the span
+        with span("vnlb.search.topk"):
+            if run_v is None:
+                sv, si = torch.sort(cand, dim=1, stable=True)
+                run_s = si[:, :k].contiguous()
+            else:
+                code = di * ws2 + torch.arange(ws2, device=cand.device)
+                sv, si = torch.sort(torch.cat([run_v, cand], dim=1), dim=1,
+                                    stable=True)
+                mc = torch.cat([run_s, code.expand(cand.shape[0], ws2)],
+                               dim=1)
+                run_s = mc.gather(1, si[:, :k])
+                del mc
+            # copies, and the sort's scratch freed before the next plane is
+            # computed: the running state is all this mode keeps
+            run_v = sv[:, :k].contiguous()
+            del sv, si, cand
     return run_v, run_s
 
 
@@ -167,7 +171,9 @@ def _select(planes, cfg: StageConfig, s_cnt: int, n_dt: int, ws2: int,
             flat[:, di] = cand
     else:
         flat = planes.permute(1, 0, 2)
-    return _sorted_topk(flat.reshape(s_cnt, n_dt * ws2), k)
+    # the per-dt planes are all computed by now: no kernel in the span
+    with span("vnlb.search.topk"):
+        return _sorted_topk(flat.reshape(s_cnt, n_dt * ws2), k)
 
 
 def _decode(vals, sel, sites, cfg: StageConfig, dt_lo: int, shape):
@@ -198,7 +204,8 @@ def _masker(sites, cfg: StageConfig, t_len: int, dt_lo: int, n_dt: int,
     f = sites[None, :, 0] + torch.arange(dt_lo, dt_lo + n_dt,
                                           device=dev)[:, None]
     valid = (f >= 0) & (f <= t_len - cfg.pt)
-    inf = torch.tensor(float("inf"), device=dev)
+    with span("vnlb.sync.dense_inf"):
+        inf = torch.tensor(float("inf"), device=dev)
     zero = torch.zeros((), device=dev)
     add = None if oob is None else torch.where(oob, inf, zero)
 

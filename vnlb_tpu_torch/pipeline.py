@@ -42,6 +42,7 @@ from .ops.search_dense import (exec_search_dense, exec_search_dense_tile,
                                 tile_search_mode)
 from .utils.flow_io import expand_flows
 from .utils.index import check_codec_range
+from .utils.timer import span
 
 # sites per chunk: bounds the candidate planes, patch gathers and filter
 # groups of one step (~2 GB at the 480p second pass)
@@ -326,11 +327,15 @@ def proc_nl(noisy: torch.Tensor, basic: Optional[torch.Tensor],
     None it is detected from the flow values.  ``t_origin`` is the global
     index of frame 0 (streaming windows align their lattices with the
     whole clip's)."""
-    noisy_yuv, basic_yuv, srch, fflow, bflow, zero_flow = prepare(
-        noisy, basic, clean, fflow, bflow, cfg, zero_flow)
+    with span("vnlb.pass.prepare"):
+        noisy_yuv, basic_yuv, srch, fflow, bflow, zero_flow = prepare(
+            noisy, basic, clean, fflow, bflow, cfg, zero_flow)
     shape = tuple(noisy_yuv.shape)
-    sites, n_dense = plan_sites(shape, cfg, zero_flow, t_origin)
-    sites = torch.as_tensor(sites, device=noisy_yuv.device)
+    with span("vnlb.pass.plan"):
+        sites, n_dense = plan_sites(shape, cfg, zero_flow, t_origin)
+        with span("vnlb.sync.sites"):
+            sites = torch.as_tensor(sites, device=noisy_yuv.device)
     deno_img, wts_img = accumulate(noisy_yuv, basic_yuv, srch, fflow, bflow,
                                    sites, n_dense, cfg, kernels)
-    return finish(deno_img, wts_img, noisy_yuv, basic_yuv, cfg)
+    with span("vnlb.pass.finish"):
+        return finish(deno_img, wts_img, noisy_yuv, basic_yuv, cfg)

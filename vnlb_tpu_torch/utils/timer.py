@@ -1,11 +1,57 @@
-"""Wall-clock timing and an optional profiler region (vnlb_tpu/utils/timer.py,
-with ``torch.profiler`` in place of ``jax.profiler``)."""
+"""Wall-clock timing, an optional profiler region (vnlb_tpu/utils/timer.py,
+with ``torch.profiler`` in place of ``jax.profiler``) and the program's
+spans.
+
+``span(name)`` opens a ``torch.profiler.record_function`` range while a
+profiler session records (``trace``, or any ``torch.profiler.profile``),
+and is a shared no-op otherwise: one C call and one branch, no allocation.
+Every span the program opens is listed in ``SPANS``, the waits last: the
+``vnlb.sync.*`` spans name each host-card copy or read that waits for the
+device.  A span adds no synchronize, no ``.item()`` and no tensor.
+"""
 
 from __future__ import annotations
 
 import contextlib
 import os
 import time
+
+import torch
+
+SPANS = (
+    "vnlb.pass.prepare",        # pipeline.proc_nl: config checks, rgb -> yuv
+    "vnlb.pass.plan",           # pipeline.proc_nl: site lattice and upload
+    "vnlb.pass.finish",         # pipeline.proc_nl: normalise, yuv -> rgb
+    "vnlb.scatter.order",       # agg.scatter_add_rows: sort, ranks, counts
+    "vnlb.scatter.rounds",      # agg.scatter_add_rows: one round a rank
+    "vnlb.filter.prep",         # bayes.bayes_denoise: centring, flat switch
+    "vnlb.filter.finish",       # bayes.bayes_denoise: trace, + mean, layout
+    "vnlb.search.topk",         # both searches: sort, merge, threshold
+    "vnlb.sync.inputs",         # api.denoise / denoise_mod: clip, flows
+    "vnlb.sync.sites",          # pipeline.proc_nl: the sites' upload
+    "vnlb.sync.color_matrix",   # color._mix: the 3 x 3 matrix's upload
+    "vnlb.sync.dense_inf",      # search_dense._masker: the inf scalar
+    "vnlb.sync.gather_inf",     # search.exec_search: the inf scalar
+    "vnlb.sync.scatter_counts",  # agg.scatter_add_rows: bincount, tolist
+    "vnlb.sync.filter_consts",  # econ_filter._consts: K2's tables
+    "vnlb.sync.call_end",       # api.denoise / denoise_mod: the last wait
+)
+
+_NOOP = contextlib.nullcontext()
+_enabled = torch.autograd._profiler_enabled
+
+
+def span(name: str):
+    """A ``record_function`` range named ``name`` (one of ``SPANS``) while
+    a profiler records, else the shared no-op context."""
+    if _enabled():
+        return torch.profiler.record_function(name)
+    return _NOOP
+
+
+def span_names() -> tuple:
+    """Every span the program opens, in ``SPANS``' order."""
+    return SPANS
 
 
 class Timer:
@@ -35,13 +81,13 @@ class Timer:
 def trace(name: str, logdir: str | None = None):
     """Profile a region with ``torch.profiler`` (the host, and the CUDA
     device when there is one) when VNLB_TPU_PROFILE names a log directory
-    (or ``logdir`` is given); the trace is written there for TensorBoard.
-    Unset, the region runs as it is."""
+    (or ``logdir`` is given); the trace is written there for TensorBoard,
+    the program's spans inside the region.  Unset, the region runs as it
+    is."""
     logdir = logdir or os.environ.get("VNLB_TPU_PROFILE", "")
     if not logdir:
         yield
         return
-    import torch
     from torch.profiler import (ProfilerActivity, profile, record_function,
                                 tensorboard_trace_handler)
 

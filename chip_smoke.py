@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the kernels from vnlb_tpu_torch/csrc, checks each kernel against its
-plain PyTorch version at the shapes of the main paths (K1 timed at each of
+plain PyTorch version at the shapes of the main paths (K6, the row
+scatter, bitwise on one chunk of each pass; K1 timed at each of
 its launch shapes, ``k1_cases``, beside its bound and its FP32 issue
 floor, with its launch plan held to the library's), holds small-clip
 PSNRs of every preset and filter mode, and of ``denoise_mod``, to the JAX
@@ -62,7 +63,8 @@ card against the C++ oracle (``vnlb_tpu_torch/testing/oracle.py``, built
 with g++; its passes run in threads beside the card's checks) and the
 NumPy oracle (``testing/npref.py``): colour and lattice, the gather search
 on K1's window-start entry and the dense search on K1's dense entry and on
-K3 (indices differ only at ties), K4 bitwise, scatter, fold and finalize,
+K3 (indices differ only at ties), K4 bitwise, scatter (K6), fold and
+finalize,
 one pass with the kernels and both passes of a 3x48x48 clip (the
 oracle's semantics within 2e-3 mean relative error and 0.01 dB; K2's
 poly run within 0.1 dB of the jacobi run).  K2's and
@@ -850,12 +852,15 @@ def halo_strips_phase(vt, noisy, clean, dev, counters, mono):
 # (the others must not)
 WORLD_EXPECT = {
     "denoise_halo": {"patch_dist_tile", "patch_dist", "econ_filter",
-                     "patch_gather"},
-    "flow_halo": {"patch_dist", "econ_filter", "patch_gather"},
-    "all_rows_halo": {"dense_dist", "econ_filter", "patch_gather"},
-    "denoise_sharded": {"patch_dist", "econ_filter", "patch_gather"},
+                     "patch_gather", "scatter_rows"},
+    "flow_halo": {"patch_dist", "econ_filter", "patch_gather",
+                  "scatter_rows"},
+    "all_rows_halo": {"dense_dist", "econ_filter", "patch_gather",
+                      "scatter_rows"},
+    "denoise_sharded": {"patch_dist", "econ_filter", "patch_gather",
+                        "scatter_rows"},
     "streaming_mesh": {"patch_dist_tile", "patch_dist", "econ_filter",
-                       "patch_gather"},
+                       "patch_gather", "scatter_rows"},
 }
 # the pipelined world's stages run streaming_mesh's two passes apart: stage
 # 2 (stype "l2") builds no coarse level, so it launches no K1 dense entry
@@ -1633,7 +1638,7 @@ def oracle_phase(vt, dev):
         acc = torch.zeros((t_len * hp * wp, pt * 3 * ps * ps + 1),
                           device=dev)
         acc = agg.agg_rows(acc, p_t, inds_to_rows(i_t, shape, ps, pt)[:, :, 0],
-                           valid & (i_t >= 0))
+                           valid & (i_t >= 0), vt.KERNELS.scatter_rows)
         d2, w2 = (x.cpu().numpy() for x in agg.fold(acc, pt, ps, shape))
         errs = dict(pixel=(np.abs(d1 - want_d).max(),
                            np.abs(w1 - want_w).max()),
@@ -1739,6 +1744,80 @@ def oracle_phase(vt, dev):
         poly_minus_jacobi_deno=f"{dpoly[1]:+.5f}")
 
 
+def k6_phase(yuv, shape, dev, cases):
+    """K6 against its plain version on one 4096-site chunk of each
+    ``(name, stage config)``: the dense search's top-K of the first 4096
+    lattice sites gives the rows and weights, as the pass makes them, and
+    a random filter output in its c-major layout the patches.  Bitwise
+    (NaN bits included) and a repeat bitwise; the kernel's time beside its
+    bound (the update rows
+    read once, the distinct accumulator rows, counted here, read and
+    written once, the sorted keys and permutation read once), the plain
+    version's and ``index_add_``'s on the plain version's update rows (a
+    yardstick: it adds duplicates in no fixed order, and the port never
+    calls it).  Returns {name: (kernel ms, plain ms, (bound ms, by),
+    index_add_ ms)}."""
+    from vnlb_tpu_torch.ops.gather import inds_to_rows
+    from vnlb_tpu_torch.ops.mask import lattice_sites
+    from vnlb_tpu_torch.ops.scatter_rows import (scatter_rows,
+                                                 scatter_rows_plain)
+    from vnlb_tpu_torch.ops.search import search_levels
+    from vnlb_tpu_torch.ops.search_dense import exec_search_dense
+    from vnlb_tpu_torch.pipeline import agg_weights
+
+    t_len, c, h, w = shape
+    times = {}
+    for name, scfg in cases:
+        ka = (scfg.agg_k if scfg.agg_k and scfg.agg_k < scfg.npatches
+              else scfg.npatches)
+        lanes = scfg.pt * c * scfg.ps ** 2 + 1
+        sites = torch.from_numpy(lattice_sites(shape, scfg)[:4096]).to(dev)
+        vals, inds = exec_search_dense(yuv, sites, scfg,
+                                       levels=search_levels(yuv, scfg))
+        b, k = inds.shape
+        rows = inds_to_rows(inds[:, :ka], shape, scfg.ps, scfg.pt)[:, :, 0]
+        wts = agg_weights(vals, inds, shape, scfg, ka)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        # the filter's c-major output: (B, C, K, pt, ps, ps) in memory
+        pfilt = (torch.randn((b, c, k, scfg.pt, scfg.ps, scfg.ps),
+                             device=dev, generator=gen) * 30 + 100) \
+            .permute(0, 2, 3, 1, 4, 5)
+        acc0 = torch.randn((t_len * (h - scfg.ps + 1) * (w - scfg.ps + 1),
+                            lanes), device=dev, generator=gen)
+        srt, perm = torch.sort(rows.to(torch.int32).reshape(-1), stable=True)
+        args = (pfilt, wts, srt, perm, scfg.agg_bf16)
+        want, got, again = acc0.clone(), acc0.clone(), acc0.clone()
+        scatter_rows_plain(want, *args)
+        scatter_rows(got, *args)
+        scatter_rows(again, *args)
+        torch.cuda.synchronize()
+        if not (torch.equal(got.view(torch.int32), want.view(torch.int32))
+                and torch.equal(again.view(torch.int32),
+                                got.view(torch.int32))):
+            raise AssertionError(f"K6 {name}: not bitwise the plain version "
+                                 f"or its repeat")
+        n = srt.numel()
+        distinct = torch.unique_consecutive(srt).numel()
+        kms = cuda_ms(lambda: scatter_rows(acc0, *args), 20)
+        pms = cuda_ms(lambda: scatter_rows_plain(acc0, *args), 3)
+        vm = wts[:, :, None]
+        upd = torch.cat([pfilt[:, :ka].reshape(b, ka, lanes - 1) * vm, vm],
+                        dim=-1).reshape(n, lanes)
+        flat = rows.reshape(-1).long()
+        lms = cuda_ms(lambda: acc0.index_add_(0, flat, upd), 20)
+        nbytes = n * (lanes - 1) * 4 + n * 4 + 2 * distinct * lanes * 4 \
+            + n * (4 + 8)
+        times[name] = (kms, pms, bound(0, 0, nbytes), lms)
+        log("k6", case=name, B=b, ka=ka, lanes=lanes, updates=n,
+            distinct_rows=distinct, mean_occurrences=f"{n / distinct:.4f}",
+            bitwise=True, kernel_ms=f"{kms:.4f}", plain_ms=f"{pms:.3f}",
+            index_add_ms=f"{lms:.4f}", mb=f"{nbytes / 1e6:.1f}",
+            kernel_gb_s=f"{nbytes / 1e6 / kms:.1f}",
+            bound_ms=f"{times[name][2][0]:.4f}", bound_by=times[name][2][1])
+        del pfilt, acc0, want, got, again, upd
+    return times
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -1767,6 +1846,7 @@ def main():
     from vnlb_tpu_torch.ops.patch_gather import (patch_gather,
                                                  patch_gather_plain)
     from vnlb_tpu_torch.ops.poly_filter import poly_filter, poly_filter_plain
+    from vnlb_tpu_torch.ops.scatter_rows import scatter_rows
     from vnlb_tpu_torch.ops.search import exec_search, search_levels
     from vnlb_tpu_torch.ops.search_dense import (exec_search_dense,
                                                  level_queries)
@@ -2022,6 +2102,12 @@ def main():
             bound_by=k4_times[name][2][1])
         del got, want
 
+    # ---- 5b. K6 vs plain on one 4096-site chunk of each pass of the
+    # API default (L = 148, 295) and of preset default's first pass ----
+    k6_times = k6_phase(yuv, shape, dev, (
+        ("iphone s0", a0), ("iphone s1", a1),
+        ("default s0", vt.default_config(SIGMA, preset="default").stage(0))))
+
     # ---- 6. K2 vs plain, both routes, at G=768 and at the main path's
     # chunk of 4096 sites x 3 channels (iphone shapes: the tensor-core
     # design, timed beside the shared-memory design on the same inputs),
@@ -2230,9 +2316,9 @@ def main():
     # ---- 8. end to end at 5x480x854: each main path with the launch
     # counts set to 0 just before it and read just after ----
     counters = (patch_dist, econ_filter, patch_gather, poly_filter,
-                dense_dist)
-    k124 = {"patch_dist", "econ_filter", "patch_gather"}
-    k145 = {"patch_dist", "patch_gather", "poly_filter"}
+                dense_dist, scatter_rows)
+    k124 = {"patch_dist", "econ_filter", "patch_gather", "scatter_rows"}
+    k145 = {"patch_dist", "patch_gather", "poly_filter", "scatter_rows"}
     runs = (("e2e", k124, cfg, None), ("e2e_api_zero", k124, None, None),
             ("e2e_api_drift", k124, None, drift),
             ("e2e_poly_pallas", k145,
@@ -2471,6 +2557,7 @@ def main():
     d5_kms, d5_pms, (d5_bms, d5_by) = k5_times["right(default s0) f32",
                                                3 * 4096]
     k3_kms, k3_pms, (k3_bms, k3_by) = k3_times["s0.l0"]
+    k6_kms, k6_pms, (k6_bms, k6_by), k6_lms = k6_times["iphone s1"]
     print(json.dumps({"kernels": [
         {"name": "patch_dist", "route": "cuda",
          "source": "vnlb_tpu_torch/csrc/patch_dist.cu",
@@ -2550,6 +2637,11 @@ def main():
          "launches": launches["halo_strips"]["patch_dist_tile"],
          "max_abs_err": k1t_err, "ms": k1t_ms, "plain_ms": k1t_pms,
          "bound_ms": k1t_bms, "bound_by": k1t_by, "library_ms": None},
+        {"name": "scatter_rows", "route": "cuda",
+         "source": "vnlb_tpu_torch/csrc/scatter_rows.cu", "replaces": None,
+         "launches": main_path["scatter_rows"], "max_abs_err": 0.0,
+         "ms": k6_kms, "plain_ms": k6_pms, "bound_ms": k6_bms,
+         "bound_by": k6_by, "library_ms": k6_lms},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

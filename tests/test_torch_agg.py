@@ -12,6 +12,7 @@ from vnlb_tpu.ops import gather as jgather
 
 from vnlb_tpu_torch.ops import agg, gather
 from vnlb_tpu_torch.ops.patch_gather import patch_gather
+from vnlb_tpu_torch.pipeline import PLAIN
 
 torch.set_num_threads(2)
 
@@ -51,7 +52,7 @@ def test_agg_fold_finalize_match_jax(pt):
     acc_t = agg.agg_rows(torch.from_numpy(acc0.copy()),
                          torch.from_numpy(patches),
                          torch.from_numpy(rows_t[:, :, 0]),
-                         torch.from_numpy(valid))
+                         torch.from_numpy(valid), PLAIN.scatter_rows)
     np.testing.assert_allclose(acc_t.numpy(), np.asarray(acc_j), rtol=1e-4,
                                atol=1e-3)
 
@@ -75,8 +76,8 @@ def test_agg_repeat_is_bitwise():
     patches = torch.from_numpy(rng.normal(size=(30, 9, 1, 1, 7, 1))
                                .astype(np.float32))
     wts = torch.ones((30, 9))
-    a = agg.agg_rows(acc.clone(), patches, rows, wts)
-    b = agg.agg_rows(acc.clone(), patches, rows, wts)
+    a = agg.agg_rows(acc.clone(), patches, rows, wts, PLAIN.scatter_rows)
+    b = agg.agg_rows(acc.clone(), patches, rows, wts, PLAIN.scatter_rows)
     assert torch.equal(a, b)
 
 

@@ -22,7 +22,7 @@ from vnlb_tpu_torch.config import config_from_jax
 from vnlb_tpu_torch.ops import agg, bayes
 from vnlb_tpu_torch.ops import econ_filter as econ_filter_mod
 from vnlb_tpu_torch.ops.polyspec import poly_filter_econ
-from vnlb_tpu_torch.pipeline import agg_weights
+from vnlb_tpu_torch.pipeline import PLAIN, agg_weights
 from vnlb_tpu_torch.testing.data import add_noise, synthetic_video
 from vnlb_tpu_torch.utils.metrics import compute_psnr
 
@@ -134,7 +134,8 @@ def test_agg_rows_bf16_rounds_the_update_rows():
     wts = torch.from_numpy(rng.uniform(0.1, 1.0, (3, 4)).astype(np.float32))
     rows = torch.tensor([[0, 1, 1, 5], [2, 0, 7, 1], [3, 3, 3, 6]])
     acc0 = torch.from_numpy(rng.uniform(0, 9, (8, 25)).astype(np.float32))
-    got = agg.agg_rows(acc0.clone(), patches, rows, wts, bf16=True)
+    got = agg.agg_rows(acc0.clone(), patches, rows, wts, PLAIN.scatter_rows,
+                       bf16=True)
     upd = torch.cat([patches.reshape(3, 4, 24) * wts[..., None],
                      wts[..., None]], dim=-1).reshape(12, 25)
     upd = upd.to(torch.bfloat16).to(torch.float32)
@@ -143,7 +144,7 @@ def test_agg_rows_bf16_rounds_the_update_rows():
         want[r] += upd[i]
     assert torch.equal(got, want)
     assert not torch.equal(got, agg.agg_rows(acc0.clone(), patches, rows,
-                                             wts))
+                                             wts, PLAIN.scatter_rows))
 
 
 @pytest.mark.parametrize("stage,k,p", [(1, 60, 98), (0, 40, 49)])

@@ -29,6 +29,7 @@ from vnlb_tpu_torch.ops.patch_dist import (card_plan, patch_dist,
 from vnlb_tpu_torch.ops.patch_dist import plan as k1_plan
 from vnlb_tpu_torch.ops.patch_gather import patch_gather, patch_gather_plain
 from vnlb_tpu_torch.ops.poly_filter import poly_filter, poly_filter_plain
+from vnlb_tpu_torch.ops.scatter_rows import scatter_rows
 from vnlb_tpu_torch.ops.search import (_window_starts, eff_dt_range,
                                        search_levels, track_centers)
 from vnlb_tpu_torch.testing.data import add_noise, drift_flows, synthetic_video
@@ -298,6 +299,91 @@ def test_site_chunks_bitwise_on_card(card, monkeypatch):
     whole = vt.proc_nl(vid, vid, None, None, None, cfg)
     monkeypatch.setattr(vt.pipeline, "SITE_CHUNK", 97)
     assert torch.equal(vt.proc_nl(vid, vid, None, None, None, cfg), whole)
+
+
+
+# K6 at the main path's shapes: a 4096-site chunk of 32 scattered patches
+# of preset iphone's first pass (K = 100, pt = 1: L = 148) and second pass
+# (K = 60, pt = 2: L = 295)
+SCATTER_SHAPES = [(100, 1), (60, 2)]
+POISON = 0x7FC0DEAD             # a NaN payload no arithmetic produces
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _scatter_case(card, k, pt, weights, seed, layout="c-major"):
+    """(acc, patches, wts, srt, perm, untouched rows) of one chunk, the
+    patches in the filter's c-major layout (a permuted view) or
+    contiguous: rows
+    drawn uniformly from 5.3x as many rows as updates (about 1.1 updates
+    a row hit, as the 480p search's chunks measure), one row repeated 64
+    times, rows no update hits poisoned, and an inf and a NaN in a
+    weight-0 patch."""
+    rng = np.random.default_rng(seed)
+    b, ka, ptd = 4096, 32, pt * 3 * 49
+    n_rows = int(b * ka * 5.3)
+    rows = rng.integers(0, n_rows, (b, ka))
+    rows[7] = rows[8] = rows[3, 5]
+    patches = rng.normal(100, 30, (b, k, pt, 3, 7, 7)).astype(np.float32)
+    if weights == "01":
+        wts = (rng.random((b, ka)) < 0.9).astype(np.float32)
+    else:
+        wts = np.exp(-rng.uniform(0, 4, (b, ka))).astype(np.float32)
+        wts[rng.random((b, ka)) < 0.1] = 0.0
+    wts[2, 4] = 0.0
+    patches[2, 4, 0, 0, 0, :2] = (np.inf, np.nan)
+    acc = rng.normal(0, 50, (n_rows, ptd + 1)).astype(np.float32)
+    untouched = np.ones(n_rows, bool)
+    untouched[rows.reshape(-1)] = False
+    acc.view(np.int32)[untouched] = POISON
+    acc, patches, wts, rows = (torch.from_numpy(x).to(card)
+                               for x in (acc, patches, wts, rows))
+    if layout == "c-major":
+        patches = patches.permute(0, 3, 1, 2, 4, 5).contiguous() \
+            .permute(0, 2, 3, 1, 4, 5)
+    srt, perm = torch.sort(rows.to(torch.int32).reshape(-1), stable=True)
+    return acc, patches, wts, srt, perm, torch.from_numpy(untouched).to(card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["c-major", "contiguous"])
+@pytest.mark.parametrize("weights", ["01", "exp"])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("k,pt", SCATTER_SHAPES)
+def test_scatter_rows_kernel_bitwise_plain(card, k, pt, bf16, weights,
+                                           layout):
+    """K6 is bitwise the plain version (the update rows and the ranked
+    scatter) at the main path's chunk shapes, NaN bits included, on the
+    filter's c-major output and on contiguous patches; a repeat launch is
+    bitwise equal; rows no update hits keep their poison; one call is one
+    launch."""
+    acc, patches, wts, srt, perm, untouched = _scatter_case(
+        card, k, pt, weights, seed=k + pt + 2 * bf16, layout=layout)
+    want = acc.clone()
+    vt.PLAIN.scatter_rows(want, patches, wts, srt, perm, bf16)
+    got, again = acc.clone(), acc.clone()
+    before = scatter_rows.launches
+    scatter_rows(got, patches, wts, srt, perm, bf16)
+    scatter_rows(again, patches, wts, srt, perm, bf16)
+    torch.cuda.synchronize(card)
+    assert scatter_rows.launches == before + 2
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(again), _bits(got))
+    assert (_bits(got[untouched]) == POISON).all()
+    assert torch.isnan(got[srt[perm == 2 * 32 + 4]]).any()
+    assert not torch.equal(_bits(got), _bits(acc))
+
+
+@pytest.mark.cuda
+def test_scatter_rows_one_launch_a_chunk(card):
+    """The 480p API default scatters through K6 once a chunk: 56 chunks
+    in the first pass and 45 in the second (101)."""
+    noisy = add_noise(synthetic_video(5, 480, 854, seed=0), 20.0, seed=1)
+    scatter_rows.launches = 0
+    vt.denoise(noisy, 20.0, device=card)
+    assert scatter_rows.launches == 101
 
 
 def _groups(rng, g, k, p, card):
@@ -1047,11 +1133,11 @@ def test_agg_patches_repeat_bitwise_on_card(card):
 # the program's sync spans in one API-default call on a 5x96x112 numpy
 # clip: the clip's upload, per pass the sites' upload, three colour
 # matrices (two rgb -> yuv, one yuv -> rgb) and one dense and one gather
-# chunk (each an inf scalar, a filter call's K2 tables and a scatter's
-# counts), and the final wait
+# chunk (each an inf scalar and a filter call's K2 tables), and the final
+# wait
 SYNC_SPANS = {"vnlb.sync.inputs": 1, "vnlb.sync.sites": 2,
               "vnlb.sync.color_matrix": 6, "vnlb.sync.dense_inf": 2,
-              "vnlb.sync.gather_inf": 2, "vnlb.sync.scatter_counts": 4,
+              "vnlb.sync.gather_inf": 2, "vnlb.sync.scatter_counts": 0,
               "vnlb.sync.filter_consts": 4, "vnlb.sync.call_end": 1}
 SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
 
@@ -1060,7 +1146,10 @@ SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
 def test_every_sync_of_a_call_lies_in_a_sync_span(card):
     """Every stream or device synchronize a ``denoise`` call issues lies
     inside one of the program's ``vnlb.sync.*`` spans, on the profiler's
-    host clock; the spans' count for this clip is pinned."""
+    host clock; the spans' count for this clip is pinned.  The row scatter
+    reads no counts back (kernel K6 walks each row's updates on the card),
+    so ``vnlb.sync.scatter_counts``, which only the reference-order pass's
+    pixel scatter (``agg_patches``) opens, is pinned at 0."""
     from collections import Counter
 
     from torch.autograd import DeviceType
@@ -1082,4 +1171,4 @@ def test_every_sync_of_a_call_lies_in_a_sync_span(card):
     outside = [(n, s - call[0]) for n, s, e in syncs
                if not any(s0 <= s and e <= e0 for _, s0, e0 in spans)]
     assert syncs and not outside, outside
-    assert Counter(n for n, _, _ in spans) == SYNC_SPANS
+    assert Counter(n for n, _, _ in spans) == Counter(SYNC_SPANS)

@@ -17,6 +17,7 @@ from vnlb_tpu_torch.ops import agg, color, flat
 from vnlb_tpu_torch.ops.bayes import bayes_denoise
 from vnlb_tpu_torch.ops.gather import inds_to_rows
 from vnlb_tpu_torch.ops.mask import lattice_mask
+from vnlb_tpu_torch.pipeline import PLAIN
 from vnlb_tpu_torch.testing import npref
 
 torch.set_num_threads(2)
@@ -137,7 +138,7 @@ def test_agg_matches_reference(rng):
     rows = inds_to_rows(inds_t, shape, ps, pt)
     acc0 = torch.zeros((t_len * hp * wp, pt * d + 1))
     acc = agg.agg_rows(acc0, torch.from_numpy(patches), rows[:, :, 0],
-                       valid & (inds_t >= 0))
+                       valid & (inds_t >= 0), PLAIN.scatter_rows)
     deno2, wts2 = agg.fold(acc, pt, ps, shape)
     np.testing.assert_allclose(deno2.numpy(), deno_ref, atol=1e-4)
     np.testing.assert_allclose(wts2.numpy(), wts_ref, atol=1e-5)

@@ -64,6 +64,9 @@ SIGNATURES = {
     "vnlb_dense_dist": ([_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
                         _I),
     "vnlb_dense_dist_plan": ([_I, _I, _I, _I, _I, _I, _P], _I),
+    "vnlb_scatter_rows": ([_P, _I, _P, ctypes.c_longlong, ctypes.c_longlong,
+                           _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P,
+                           _I, _I, _P], _I),
 }
 
 

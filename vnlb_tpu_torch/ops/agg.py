@@ -8,12 +8,15 @@ fold sums the rows back to image space once per pass.
 
 The scatter is deterministic on every device and adds each row's updates
 in their original order, as a sequential scatter does (and as the JAX
-package's scatter does on the CPU): the updates are grouped by their
-occurrence rank among updates of the same row (a stable sort), and each
-rank is added with an indexed read-add-write over rows that are unique
-within it.  ``index_add_`` and ``index_put_(accumulate=True)`` reduce
-duplicates in an order that varies from run to run (atomics on CUDA, a
-parallel reduction on the CPU).
+package's scatter does on the CPU).  ``agg_rows`` sorts the rows stably
+and hands them to a ``Kernels.scatter_rows`` function (ops/scatter_rows.py:
+kernel K6 on the card, whose warps each walk one row's updates in order).
+The plain version, and the pixel-space ``agg_patches``, use
+``scatter_add_rows``: the updates are grouped by their occurrence rank
+among updates of the same row, and each rank is added with an indexed
+read-add-write over rows that are unique within it.  ``index_add_`` and
+``index_put_(accumulate=True)`` reduce duplicates in an order that varies
+from run to run (atomics on CUDA, a parallel reduction on the CPU).
 """
 
 from __future__ import annotations
@@ -26,26 +29,28 @@ from ..utils.timer import span
 
 
 def agg_rows(acc: torch.Tensor, patches: torch.Tensor, rows: torch.Tensor,
-             valid: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+             valid: torch.Tensor, scatter, bf16: bool = False
+             ) -> torch.Tensor:
     """Accumulate patch rows into ``acc`` in place and return it.
 
-    patches: (B, K, pt, C, ps, ps) filtered patches; rows: (B, K) base rows;
-    valid: (B,) or (B, K) bool or float per-patch weights (the weight lane
-    accumulates the weight mass).  ``bf16`` rounds the update rows (the
-    weighted patch lanes and the weight lane) to bf16 before the scatter,
-    which adds them exactly into the f32 accumulator
-    (vnlb_tpu/pipeline.py:257-261).
+    patches: (B, K, pt, C, ps, ps) filtered patches, of which the first ka
+    are scattered; rows: (B, ka) base rows; valid: (B,) or (B, ka) bool or
+    float per-patch weights (the weight lane accumulates the weight mass).
+    ``bf16`` rounds the update rows (the weighted patch lanes and the
+    weight lane) to bf16 before the scatter, which adds them exactly into
+    the f32 accumulator (vnlb_tpu/pipeline.py:257-261).  ``scatter`` is a
+    ``Kernels.scatter_rows`` function: it takes the rows sorted stably
+    (int32 keys) with their permutation and adds every row's updates in
+    their original order.
     """
-    b, k = rows.shape
-    ptd = acc.shape[1] - 1
+    b, ka = rows.shape
     if valid.dim() == 1:
-        valid = valid[:, None]
-    vm = valid[:, :, None].to(patches.dtype)
-    upd = torch.cat([patches.reshape(b, k, ptd) * vm,
-                     vm.expand(b, k, 1)], dim=-1)
-    if bf16:
-        upd = upd.to(torch.bfloat16).to(acc.dtype)
-    scatter_add_rows(acc, rows.reshape(-1).long(), upd.reshape(-1, ptd + 1))
+        valid = valid[:, None].expand(b, ka)
+    wts = valid.to(patches.dtype)
+    with span("vnlb.scatter.order"):
+        srt, perm = torch.sort(rows.to(torch.int32).reshape(-1), stable=True)
+    with span("vnlb.scatter.rounds"):
+        scatter(acc, patches, wts, srt, perm, bf16)
     return acc
 
 
@@ -55,27 +60,41 @@ def scatter_add_rows(acc: torch.Tensor, rows: torch.Tensor,
 
     Rank r holds the r-th occurrence of every row; ranks are added in
     ascending order, so each row receives its updates in original order."""
-    n = rows.numel()
-    if n == 0:
+    if rows.numel() == 0:
         return
     with span("vnlb.scatter.order"):
         srt, perm = torch.sort(rows, stable=True)
-        pos = torch.arange(n, device=rows.device)
-        new = torch.ones(n, dtype=torch.bool, device=rows.device)
-        new[1:] = srt[1:] != srt[:-1]
-        start = torch.cummax(torch.where(new, pos, torch.zeros_like(pos)),
-                             dim=0).values
-        rank = pos - start                   # occurrence rank, sorted order
-        order = perm[torch.sort(rank, stable=True).indices]
-        with span("vnlb.sync.scatter_counts"):
-            counts = torch.bincount(rank).tolist()
+        idx, counts = rank_order(srt)
     with span("vnlb.scatter.rounds"):
-        off = 0
-        for cnt in counts:
-            sel = order[off:off + cnt]
-            r = rows[sel]
-            acc[r] += upd[sel]
-            off += cnt
+        add_by_rank(acc, srt, perm, upd, idx, counts)
+
+
+def rank_order(srt: torch.Tensor):
+    """(idx, counts) of stably sorted rows ``srt``: the sorted positions
+    ordered by occurrence rank (stable), and the count of each rank, read
+    back to the host."""
+    n = srt.numel()
+    pos = torch.arange(n, device=srt.device)
+    new = torch.ones(n, dtype=torch.bool, device=srt.device)
+    new[1:] = srt[1:] != srt[:-1]
+    start = torch.cummax(torch.where(new, pos, torch.zeros_like(pos)),
+                         dim=0).values
+    rank = pos - start                       # occurrence rank, sorted order
+    idx = torch.sort(rank, stable=True).indices
+    with span("vnlb.sync.scatter_counts"):
+        counts = torch.bincount(rank).tolist()
+    return idx, counts
+
+
+def add_by_rank(acc: torch.Tensor, srt: torch.Tensor, perm: torch.Tensor,
+                upd: torch.Tensor, idx: torch.Tensor, counts) -> None:
+    """One indexed read-add-write a rank: rank r adds update perm[i] at row
+    srt[i] for its sorted positions i, rows unique within the rank."""
+    off = 0
+    for cnt in counts:
+        ix = idx[off:off + cnt]
+        acc[srt[ix]] += upd[perm[ix]]
+        off += cnt
 
 
 def agg_patches(deno: torch.Tensor, weights: torch.Tensor,

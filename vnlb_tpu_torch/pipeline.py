@@ -12,8 +12,8 @@ the distances of both, unless the first phase searched them), patch gather
 modes (the econ filter is kernel K2, the two-factor filter kernel K5) or
 the raw patches (``deno="ave"``), ``agg_k`` thinning, the aggregation
 weights (``agg_weights``: ``only_frame``, ``agg_weight="exp"``) and the
-scatter into the column-space accumulator (``agg_bf16`` rounds its update
-rows).
+scatter into the column-space accumulator (kernel K6; ``agg_bf16`` rounds
+its update rows).
 After the last chunk: fold, normalization with the fallback image, YUV ->
 RGB.  Chunks bound the memory; they are processed in the planned site
 order, so the scatter adds rows in the same order as JAX's one scatter over
@@ -37,6 +37,7 @@ from .ops.patch_dist import (patch_dist, patch_dist_plain, patch_dist_tile,
                              patch_dist_tile_plain)
 from .ops.patch_gather import patch_gather, patch_gather_plain
 from .ops.poly_filter import poly_filter, poly_filter_plain
+from .ops.scatter_rows import scatter_rows, scatter_rows_plain
 from .ops.search import exec_search, search_levels
 from .ops.search_dense import (exec_search_dense, exec_search_dense_tile,
                                 tile_search_mode)
@@ -58,17 +59,20 @@ class Kernels(NamedTuple):
     poly_filter: object
     dense_dist: object
     patch_dist_tile: object
+    scatter_rows: object
 
 
 # the device-dispatching wrappers (kernels on CUDA, plain versions on CPU)
 KERNELS = Kernels(patch_dist=patch_dist, econ_filter=econ_filter,
                   patch_gather=patch_gather, poly_filter=poly_filter,
-                  dense_dist=dense_dist, patch_dist_tile=patch_dist_tile)
+                  dense_dist=dense_dist, patch_dist_tile=patch_dist_tile,
+                  scatter_rows=scatter_rows)
 # the plain PyTorch versions on any device (on-card comparison)
 PLAIN = Kernels(patch_dist=patch_dist_plain, econ_filter=econ_filter_plain,
                 patch_gather=patch_gather_plain,
                 poly_filter=poly_filter_plain, dense_dist=dense_dist_plain,
-                patch_dist_tile=patch_dist_tile_plain)
+                patch_dist_tile=patch_dist_tile_plain,
+                scatter_rows=scatter_rows_plain)
 
 
 def check_supported(cfg: StageConfig) -> None:
@@ -220,7 +224,7 @@ def accumulate(noisy_yuv: torch.Tensor, basic_yuv: torch.Tensor,
         # Bayes prior above used all K
         rows = gather.inds_to_rows(inds[:, :ka], shape, cfg.ps, cfg.pt)
         wts = agg_weights(vals, inds, shape, cfg, ka)
-        agg.agg_rows(acc, pfilt[:, :ka], rows[:, :, 0], wts,
+        agg.agg_rows(acc, pfilt, rows[:, :, 0], wts, kernels.scatter_rows,
                      bf16=cfg.agg_bf16)
     return agg.fold(acc, cfg.pt, cfg.ps, shape)
 

@@ -22,8 +22,10 @@ SPANS = (
     "vnlb.pass.prepare",        # pipeline.proc_nl: config checks, rgb -> yuv
     "vnlb.pass.plan",           # pipeline.proc_nl: site lattice and upload
     "vnlb.pass.finish",         # pipeline.proc_nl: normalise, yuv -> rgb
-    "vnlb.scatter.order",       # agg.scatter_add_rows: sort, ranks, counts
-    "vnlb.scatter.rounds",      # agg.scatter_add_rows: one round a rank
+    "vnlb.scatter.order",       # agg.agg_rows: the row sort; agg.
+                                # scatter_add_rows: sort, ranks, counts
+    "vnlb.scatter.rounds",      # agg.agg_rows: the scatter (K6 on CUDA);
+                                # scatter_add_rows: one round a rank
     "vnlb.filter.prep",         # bayes.bayes_denoise: centring, flat switch
     "vnlb.filter.finish",       # bayes.bayes_denoise: trace, + mean, layout
     "vnlb.search.topk",         # both searches: sort, merge, threshold

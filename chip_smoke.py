@@ -88,6 +88,7 @@ it, the script fails and prints no result.
 """
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1818,6 +1819,152 @@ def k6_phase(yuv, shape, dev, cases):
     return times
 
 
+def windowed(vt, noisy, cfg, chunk, dev):
+    """(deno, basic) of the windowed composition on ``dev``: each pass over
+    ``streaming.windows``, as ``denoise_pipelined(devices=)`` runs it."""
+    from vnlb_tpu_torch.streaming import (host_inputs, window_pass,
+                                          window_stream)
+
+    nz, ff, bf, zf = host_inputs(noisy, None)
+
+    def window(scfg, basic_full, lo, hi):
+        return window_pass(scfg, nz, basic_full, ff, bf, zf, lo, hi, dev)
+
+    basic = window_stream(cfg.stage(0), nz, None, chunk, window)
+    return window_stream(cfg.stage(1), nz, basic, chunk, window), basic
+
+
+def cell_limits():
+    """The check limits of the benchmark's long-clip cell."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "perfbench", "workloads",
+                        "iphone-480p-t48-stream.json")
+    with open(path) as f:
+        return json.load(f)["limits"]
+
+
+def gaps(deno, basic, d_ref, b_ref):
+    """The cell check's numbers of one call against another (gray
+    levels): mean |d| and root mean square of both passes."""
+    out = {}
+    for tag, got, want in (("basic", basic, b_ref), ("deno", deno, d_ref)):
+        d = np.asarray(got, np.float64) - np.asarray(want, np.float64)
+        out[f"{tag}_mean_abs"] = float(np.abs(d).mean())
+        out[f"{tag}_rms"] = float(np.sqrt((d * d).mean()))
+    return out
+
+
+def stream_phase(vt, dev, counters, launches):
+    """The rolling stream: the API default on a 36x480x854 clip (3 steps a
+    pass, a live window of 33 of its 36 frames) against the whole-clip
+    ``denoise`` within the long-clip cell's limits, every site once and
+    its peak flat from 36 to 72 frames; STREAM_CFG's 24-frame run (nwt 2,
+    the all-rows search, chunk 4) against ``denoise``; and
+    ``denoise_pipelined(devices=)`` bitwise the windowed composition it
+    runs, with its launches."""
+    from vnlb_tpu_torch.ops.dense_dist import dense_dist
+    from vnlb_tpu_torch.parallel.pipe import denoise_pipelined
+    from vnlb_tpu_torch.pipeline import plan_sites
+    from vnlb_tpu_torch.streaming import live_slots, stream_pass
+    from vnlb_tpu_torch.testing.data import add_noise, synthetic_video
+    from vnlb_tpu_torch.utils.metrics import compute_psnr
+
+    # ---- 8c. the API default's rolling stream ----
+    a_clean = synthetic_video(36, H, W, seed=0)
+    a_noisy = add_noise(a_clean, SIGMA, seed=1)
+    api = vt.default_config(SIGMA)
+    torch.cuda.empty_cache()
+    dm, bm, mono_s = vt.denoise(a_noisy, SIGMA, device=dev)
+    dm, bm = dm.cpu().numpy(), bm.cpu().numpy()
+    torch.cuda.empty_cache()
+    peaks, secs = [], []
+    for t_len in (36, 72):
+        noisy = a_noisy if t_len == 36 else add_noise(
+            synthetic_video(t_len, H, W, seed=0), SIGMA, seed=1)
+        for k in ("steps", "sites", "live_frames"):
+            setattr(stream_pass, k, 0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ds, bs, sec = vt.denoise_streaming(noisy, SIGMA, device=dev)
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+        secs.append(sec)
+        want_sites = sum(len(plan_sites(noisy.shape, api.stage(i), True)[0])
+                         for i in (0, 1))
+        if stream_pass.sites != want_sites or stream_pass.live_frames > max(
+                live_slots(api.stage(i), t_len, 12) for i in (0, 1)):
+            raise AssertionError(f"stream_api {t_len}: sites "
+                                 f"{stream_pass.sites} of {want_sites}, "
+                                 f"{stream_pass.live_frames} live frames")
+        if t_len == 36:
+            got, lim = gaps(ds, bs, dm, bm), cell_limits()
+        del ds, bs
+        torch.cuda.empty_cache()
+    log("stream_api", frames="36,72", chunk=12, seconds=",".join(
+        f"{x:.3f}" for x in secs), whole_seconds=f"{mono_s:.3f}",
+        peak_mem_gib=",".join(f"{p / 2 ** 30:.3f}" for p in peaks),
+        **{k: f"{v:.4g}" for k, v in got.items()},
+        limits=",".join(f"{k}={v}" for k, v in lim.items()))
+    over = [k for k, v in lim.items() if not got[k] <= v]
+    if over or abs(peaks[1] - peaks[0]) > 0.05 * peaks[0]:
+        raise AssertionError(f"stream_api: over the cell's limits {over} "
+                             f"or peak not flat {peaks}")
+
+    # ---- 8d. STREAM_CFG's run against the whole-clip denoise ----
+    s_clean = synthetic_video(STREAM_T, H, W, seed=0)
+    s_noisy = add_noise(s_clean, SIGMA, seed=1)
+    s_cfg = vt.default_config(SIGMA, **STREAM_CFG)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dm, bm, mono_s = vt.denoise(s_noisy, SIGMA, cfg=s_cfg, device=dev)
+    mono_peak = torch.cuda.max_memory_allocated(dev)
+    dm, bm = dm.cpu().numpy(), bm.cpu().numpy()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters:
+        c.launches = 0
+    ds, bs, str_s = vt.denoise_streaming(s_noisy, SIGMA, chunk=STREAM_CHUNK,
+                                         cfg=s_cfg, device=dev)
+    str_peak = torch.cuda.max_memory_allocated(dev)
+    mad_b, mad_d = np.abs(bs - bm).mean(), np.abs(ds - dm).mean()
+    dpsnr = abs(compute_psnr(ds, s_clean) - compute_psnr(dm, s_clean))
+    log("streaming", frames=STREAM_T, chunk=STREAM_CHUNK,
+        seconds=f"{str_s:.3f}", fps=f"{STREAM_T / str_s:.3f}",
+        whole_seconds=f"{mono_s:.3f}",
+        psnr_noisy=f"{compute_psnr(s_noisy, s_clean):.4f}",
+        psnr_deno=f"{compute_psnr(ds, s_clean):.4f}",
+        whole_psnr_deno=f"{compute_psnr(dm, s_clean):.4f}",
+        mean_abs_diff_basic=f"{mad_b:.3g}", mean_abs_diff_deno=f"{mad_d:.3g}",
+        peak_mem_gib=f"{str_peak / 2 ** 30:.3f}",
+        whole_peak_mem_gib=f"{mono_peak / 2 ** 30:.3f}",
+        k3_launches=dense_dist.launches)
+    if not (mad_b < 1e-3 and mad_d < 1e-3 and dpsnr < 0.01
+            and str_peak < mono_peak and dense_dist.launches > 0):
+        raise AssertionError("streaming: differs from the whole-clip run or "
+                             "needs more memory")
+
+    # ---- 8e. denoise_pipelined(devices=) of the same clip, both passes on
+    # this card: bitwise the windowed composition, with its launches ----
+    for c in counters:
+        c.launches = 0
+    wd, wb = windowed(vt, s_noisy, s_cfg, STREAM_CHUNK, dev)
+    win_launches = {c.__name__: c.launches for c in counters}
+    for c in counters:
+        c.launches = 0
+    pd, pb, pipe_s = denoise_pipelined(s_noisy, SIGMA, chunk=STREAM_CHUNK,
+                                       cfg=s_cfg, devices=(dev, dev))
+    launches["pipe_devices"] = {c.__name__: c.launches for c in counters}
+    if not (np.array_equal(pd, wd) and np.array_equal(pb, wb)):
+        raise AssertionError("pipe_devices: not bitwise equal to the "
+                             "windowed composition")
+    if launches["pipe_devices"] != win_launches:
+        raise AssertionError(f"pipe_devices: launches "
+                             f"{launches['pipe_devices']}, windowed "
+                             f"{win_launches}")
+    log("pipe_devices", frames=STREAM_T, chunk=STREAM_CHUNK,
+        devices=f"{dev},{dev}", seconds=f"{pipe_s:.3f}",
+        streaming_seconds=f"{str_s:.3f}", bitwise_equal_windowed=True,
+        **launches["pipe_devices"])
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -2443,60 +2590,8 @@ def main():
         stream_bitwise_equal_exact=True)
     del d_full, b_full, d_str, b_str
 
-    # ---- 8c. denoise_streaming against the whole-clip denoise ----
-    s_clean = synthetic_video(STREAM_T, H, W, seed=0)
-    s_noisy = add_noise(s_clean, SIGMA, seed=1)
-    s_cfg = vt.default_config(SIGMA, **STREAM_CFG)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    dm, bm, mono_s = vt.denoise(s_noisy, SIGMA, cfg=s_cfg, device=dev)
-    mono_peak = torch.cuda.max_memory_allocated(dev)
-    dm, bm = dm.cpu().numpy(), bm.cpu().numpy()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    for c in counters:
-        c.launches = 0
-    ds, bs, str_s = vt.denoise_streaming(s_noisy, SIGMA, chunk=STREAM_CHUNK,
-                                         cfg=s_cfg, device=dev)
-    str_launches = {c.__name__: c.launches for c in counters}
-    str_peak = torch.cuda.max_memory_allocated(dev)
-    mad_b, mad_d = np.abs(bs - bm).mean(), np.abs(ds - dm).mean()
-    dpsnr = abs(compute_psnr(ds, s_clean) - compute_psnr(dm, s_clean))
-    log("streaming", frames=STREAM_T, chunk=STREAM_CHUNK,
-        seconds=f"{str_s:.3f}", fps=f"{STREAM_T / str_s:.3f}",
-        whole_seconds=f"{mono_s:.3f}",
-        psnr_noisy=f"{compute_psnr(s_noisy, s_clean):.4f}",
-        psnr_deno=f"{compute_psnr(ds, s_clean):.4f}",
-        whole_psnr_deno=f"{compute_psnr(dm, s_clean):.4f}",
-        mean_abs_diff_basic=f"{mad_b:.3g}", mean_abs_diff_deno=f"{mad_d:.3g}",
-        peak_mem_gib=f"{str_peak / 2 ** 30:.3f}",
-        whole_peak_mem_gib=f"{mono_peak / 2 ** 30:.3f}",
-        k3_launches=dense_dist.launches)
-    if not (mad_b < 1e-3 and mad_d < 1e-3 and dpsnr < 0.01
-            and str_peak < mono_peak and dense_dist.launches > 0):
-        raise AssertionError("streaming: differs from the whole-clip run or "
-                             "needs more memory")
-
-    # ---- 8d. denoise_pipelined(devices=) of the same clip, both passes on
-    # this card: bitwise the streaming run, with its launches ----
-    from vnlb_tpu_torch.parallel.pipe import denoise_pipelined
-    for c in counters:
-        c.launches = 0
-    pd, pb, pipe_s = denoise_pipelined(s_noisy, SIGMA, chunk=STREAM_CHUNK,
-                                       cfg=s_cfg, devices=(dev, dev))
-    launches["pipe_devices"] = {c.__name__: c.launches for c in counters}
-    if not (np.array_equal(pd, ds) and np.array_equal(pb, bs)):
-        raise AssertionError("pipe_devices: not bitwise equal to "
-                             "denoise_streaming")
-    if launches["pipe_devices"] != str_launches:
-        raise AssertionError(f"pipe_devices: launches "
-                             f"{launches['pipe_devices']}, streaming "
-                             f"{str_launches}")
-    log("pipe_devices", frames=STREAM_T, chunk=STREAM_CHUNK,
-        devices=f"{dev},{dev}", seconds=f"{pipe_s:.3f}",
-        streaming_seconds=f"{str_s:.3f}", bitwise_equal_streaming=True,
-        **launches["pipe_devices"])
-    del pd, pb
+    # ---- 8c-8e. the rolling stream, denoise_pipelined(devices=) ----
+    stream_phase(vt, dev, counters, launches)
 
     # ---- 9. the halo-sharded pass: K1's tile entry, the one-card strip
     # runner over 4 strips, a 2-rank gloo world on this card ----

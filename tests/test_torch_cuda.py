@@ -891,6 +891,56 @@ def test_streaming_on_card(card):
     assert np.abs(b_s - b_m.cpu().numpy()).mean() < 1e-3
 
 
+def _cell_limits():
+    """The check limits of the benchmark's long-clip cell."""
+    import json
+    from pathlib import Path
+
+    path = (Path(__file__).resolve().parent.parent / "perfbench"
+            / "workloads" / "iphone-480p-t48-stream.json")
+    return json.loads(path.read_text())["limits"]
+
+
+@pytest.mark.cuda
+def test_rolling_stream_api_default_on_card(card):
+    """The API default's rolling stream of a 36x480x854 clip (3 steps a
+    pass, a live window of 33 frames) against the whole-clip ``denoise``
+    within the long-clip cell's limits; every lattice site once."""
+    from vnlb_tpu_torch.pipeline import plan_sites
+    from vnlb_tpu_torch.streaming import stream_pass
+
+    noisy = add_noise(synthetic_video(36, 480, 854, seed=0), 20.0, seed=1)
+    cfg = vt.default_config(20.0)
+    stream_pass.sites = stream_pass.live_frames = 0
+    d_s, b_s, _ = vt.denoise_streaming(noisy, 20.0, device=card)
+    assert stream_pass.sites == sum(
+        len(plan_sites(noisy.shape, cfg.stage(i), True)[0]) for i in (0, 1))
+    assert stream_pass.live_frames <= 12 + 10 + 10 + 1
+    d_m, b_m, _ = vt.denoise(noisy, 20.0, device=card)
+    got = {}
+    for tag, a, b in (("basic", b_s, b_m), ("deno", d_s, d_m)):
+        d = a.astype(np.float64) - b.cpu().numpy().astype(np.float64)
+        got[f"{tag}_mean_abs"] = np.abs(d).mean()
+        got[f"{tag}_rms"] = np.sqrt((d * d).mean())
+    lim = _cell_limits()
+    assert all(got[k] <= v for k, v in lim.items()), (got, lim)
+
+
+@pytest.mark.cuda
+def test_rolling_stream_peak_flat_in_t(card):
+    """The card's peak memory of a streamed call is the same at 40 and at
+    80 frames (both past the 33-frame live window)."""
+    peaks = []
+    for t_len in (40, 80):
+        noisy = add_noise(synthetic_video(t_len, 128, 160, seed=0), 20.0,
+                          seed=1)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(card)
+        vt.denoise_streaming(noisy, 20.0, device=card)
+        peaks.append(torch.cuda.max_memory_allocated(card))
+    assert abs(peaks[1] - peaks[0]) <= 0.05 * peaks[0], peaks
+
+
 def _strip_case(stage, strip, card):
     """A 5x128x96 clip in 4 strips (hs 32, halo 14): the search tile of
     ``strip`` at ``stage``, its home sites and the global bounds."""
@@ -1172,3 +1222,32 @@ def test_every_sync_of_a_call_lies_in_a_sync_span(card):
                if not any(s0 <= s and e <= e0 for _, s0, e0 in spans)]
     assert syncs and not outside, outside
     assert Counter(n for n, _, _ in spans) == Counter(SYNC_SPANS)
+
+
+@pytest.mark.cuda
+def test_every_sync_of_a_streamed_call_lies_in_a_sync_span(card):
+    """The same of a ``denoise_streaming`` call whose passes take several
+    steps (13 frames, chunk 3): the frames' and sites' uploads and the
+    retired frames' copies lie in ``vnlb.sync.stream_in`` /
+    ``.stream_out``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    noisy = add_noise(synthetic_video(13, 96, 112, seed=0), 20.0, seed=1)
+    vt.denoise_streaming(noisy, 20.0, chunk=3, device=card)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("test.call"):
+            vt.denoise_streaming(noisy, 20.0, chunk=3, device=card)
+    evs = [(e.name(), e.start_ns(), e.end_ns())
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CPU]
+    (call,) = [(s, e) for n, s, e in evs if n == "test.call"]
+    spans = [(n, s, e) for n, s, e in evs if n.startswith("vnlb.sync.")]
+    syncs = [(n, s, e) for n, s, e in evs
+             if n in SYNCS and call[0] <= s and e <= call[1]]
+    outside = [(n, s - call[0]) for n, s, e in syncs
+               if not any(s0 <= s and e <= e0 for _, s0, e0 in spans)]
+    assert syncs and not outside, outside
+    names = {n for n, _, _ in spans}
+    assert {"vnlb.sync.stream_in", "vnlb.sync.stream_out"} <= names

@@ -9,9 +9,9 @@
   a 2-device mesh;
 * ``denoise_streaming(mesh=...)`` against JAX's on a 2-device mesh and
   against the port's one-device streaming;
-* ``denoise_pipelined(devices=("cpu", "cpu"))`` bitwise against the port's
-  ``denoise_streaming``, and against JAX's ``denoise_pipelined`` over two
-  CPU devices.
+* ``denoise_pipelined(devices=("cpu", "cpu"))`` bitwise against the
+  windowed composition it runs (``streaming.window_stream``), and against
+  JAX's ``denoise_pipelined`` over two CPU devices.
 """
 
 import jax
@@ -33,6 +33,7 @@ from vnlb_tpu_torch.parallel.launch import run_world, sequence
 from vnlb_tpu_torch.parallel.pipe import denoise_pipelined
 from vnlb_tpu_torch.parallel.tiled import denoise_sharded
 from vnlb_tpu_torch.parallel.tp import bayes_denoise_tp, c_major
+from vnlb_tpu_torch.streaming import host_inputs, window_pass, window_stream
 from vnlb_tpu_torch.testing.data import add_noise, synthetic_video
 from vnlb_tpu_torch.utils.metrics import compute_psnr
 
@@ -194,10 +195,17 @@ def pipe_clip():
 
 
 def test_pipelined_equals_streaming(pipe_clip):
+    """Bitwise the windowed composition both stages run (the windows of
+    ``denoise_streaming(mesh=...)``, each pass on one device)."""
     _, noisy, kw, deno, basic = pipe_clip
-    sdeno, sbasic, _ = vt.denoise_streaming(
-        noisy, 20.0, chunk=2, cfg=vt.default_config(20.0, **kw),
-        device="cpu")
+    cfg = vt.default_config(20.0, **kw)
+    nz, ff, bf, zf = host_inputs(noisy, None)
+
+    def window(scfg, basic_full, lo, hi):
+        return window_pass(scfg, nz, basic_full, ff, bf, zf, lo, hi, "cpu")
+
+    sbasic = window_stream(cfg.stage(0), nz, None, 2, window)
+    sdeno = window_stream(cfg.stage(1), nz, sbasic, 2, window)
     np.testing.assert_array_equal(basic, sbasic)
     np.testing.assert_array_equal(deno, sdeno)
 

@@ -7,8 +7,10 @@ every span of ``span_names()`` but the sync sites only a CUDA run has,
 each inside the benchmark's ranges at the depth its
 ``perfbench/ranges/<span>.json`` gives, with no kernel call inside a
 filter or top-K span, no span inside one of its own name and the
-``vnlb.sync.*`` spans innermost.  Every ``span("...")`` of the package
-names an entry of the catalogue."""
+``vnlb.sync.*`` spans innermost; a ``denoise_streaming`` call in the same
+recording opens the stream's spans, each inside the range around the
+function that opens it.  Every ``span("...")`` of the package names an
+entry of the catalogue."""
 
 import json
 import re
@@ -32,7 +34,13 @@ DEPTH = {"vnlb.pass.prepare": 2, "vnlb.pass.plan": 2, "vnlb.pass.finish": 2,
          "vnlb.scatter.order": 4, "vnlb.scatter.rounds": 4,
          "vnlb.filter.prep": 4, "vnlb.filter.finish": 4,
          "vnlb.search.topk": 4}
-REGISTERED = [n for n in span_names() if not n.startswith("vnlb.sync.")]
+# the stream's spans are read through the ranges around the functions that
+# open them (perfbench/ranges/streaming.*.json), not through files of their
+# own
+STREAM = {"vnlb.stream.step": "streaming.enter_step",
+          "vnlb.stream.retire": "streaming.retire"}
+REGISTERED = [n for n in span_names()
+              if not n.startswith("vnlb.sync.") and n not in STREAM]
 # K2's tables are uploaded by the kernel's wrapper; only a CUDA call ends
 # in a synchronize
 CUDA_ONLY = ("vnlb.sync.filter_consts", "vnlb.sync.call_end")
@@ -52,6 +60,8 @@ def recorded():
     try:
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             vt.denoise(clip(), 20.0, device="cpu", kernels=inst.kernels)
+            vt.denoise_streaming(clip(), 20.0, chunk=2, device="cpu",
+                                 kernels=inst.kernels)
         depth = {n: d for n, d in inst.depth.items()
                  if not n.startswith("vnlb.")}
         names = set(inst.range_names) | set(span_names())
@@ -147,6 +157,16 @@ def test_range_files_are_the_registered_spans():
         assert json.loads(p.read_text()) == {
             "module": "vnlb_tpu_torch.utils.timer",
             "attribute": "span_names", "depth": DEPTH[p.stem]}
+
+
+def test_stream_spans_inside_their_ranges(recorded):
+    events, depth = recorded
+    for name, rng in STREAM.items():
+        assert depth[rng] == 2
+        spans = of(events, name)
+        assert spans and len(spans) == len(of(events, rng))
+        assert all(any(inside(iv, r) for r in of(events, rng))
+                   for iv in spans)
 
 
 def test_catalogue_is_what_the_package_opens():

@@ -13,7 +13,7 @@ import torch
 
 from .config import VnlbConfig, default_config
 from .pipeline import KERNELS, Kernels, as_video, prep_flows, proc_nl
-from .streaming import host_inputs, pass_ctx, window_pass, windows
+from .streaming import host_inputs, stream_pass, window_stream
 from .utils.precision import full_f32
 from .utils.timer import span
 
@@ -71,53 +71,55 @@ def denoise(noisy, sigma: float, flows=None, clean=None,
 def denoise_streaming(noisy, sigma: float, chunk: int = 12, flows=None,
                       preset: str = "iphone",
                       cfg: Optional[VnlbConfig] = None, mesh=None,
-                      verbose: bool = False, device="cuda"
+                      verbose: bool = False, device="cuda",
+                      kernels: Kernels = KERNELS
                       ) -> Tuple[np.ndarray, np.ndarray, float]:
-    """Two-pass denoising of a long clip in bounded device memory
-    (vnlb_tpu/api.py:86-167).
+    """Two-pass denoising of a long clip in bounded device memory.
 
-    Each pass streams over temporal chunks of ``chunk`` output frames, each
-    run in a fixed window of ``chunk + 2*ctx`` frames
-    (``streaming.pass_ctx``), so every contributing site sees what it sees
-    in the whole-clip run.  Pass 1 is assembled on the host before pass 2
-    streams over it; each window's lattice is anchored to global frame
-    indices (``proc_nl(..., t_origin)``).  The device holds one window at a
-    time; outputs match ``denoise`` up to the summation order of the
-    scatter.
+    Each pass is a rolling stream over the whole clip's lattice
+    (``streaming.stream_pass``): steps of ``chunk`` site frames, each site
+    searched, filtered and scattered once, with only the live frames on
+    ``device``: the image frames the step's sites reach and the rows of
+    an accumulator of at most ``chunk + nwt_b + nwt_f + pt - 1`` frames
+    (33 at the API default), which does not grow with the clip.  Frames
+    enter from the host clip and leave for it once complete; pass 1's
+    output is held on the host and streamed into pass 2.  Outputs match
+    ``denoise`` up to the summation order of the scatter, and bit for bit
+    when ``chunk`` covers the clip.
 
     ``mesh`` (a ``parallel.comm.Mesh``): every rank of the world calls this
-    with the whole clip, and each window runs ``parallel.halo.proc_nl_halo``
-    split over H across the mesh, on the mesh's device (``device`` is then
-    not used).  ``verbose`` prints one line per window, as
-    ``vnlb_tpu.denoise_streaming`` does.  Returns (deno, basic, seconds)
+    with the whole clip, and each pass runs over fixed windows of ``chunk +
+    2*ctx`` frames (``streaming.window_stream``, vnlb_tpu/api.py:86-167),
+    each through ``parallel.halo.proc_nl_halo`` split over H across the
+    mesh, on the mesh's device (``device`` is then not used).  ``verbose``
+    prints one line per step or window, as ``vnlb_tpu.denoise_streaming``
+    does.  ``kernels`` as in ``denoise``.  Returns (deno, basic, seconds)
     as host numpy arrays.
     """
     t0 = time.perf_counter()
-    device = torch.device(device)
     noisy, fflow, bflow, zflow = host_inputs(noisy, flows)
-    t_len = noisy.shape[0]
     cfg = cfg or default_config(sigma, preset=preset, verbose=verbose)
-    if mesh is not None:
+    if mesh is None:
+        device = torch.device(device)
+
+        def run(scfg, basic_full):
+            return stream_pass(scfg, noisy, basic_full, fflow, bflow, zflow,
+                               chunk, device, kernels, verbose)
+    else:
         from .parallel.halo import proc_nl_halo
 
-    def stream_pass(scfg, basic_full):
-        out = np.empty_like(noisy)
-        for start, stop, lo, hi in windows(t_len, chunk, pass_ctx(scfg)):
-            if mesh is None:
-                o = window_pass(scfg, noisy, basic_full, fflow, bflow, zflow,
-                                lo, hi, device)
-            else:
-                o = proc_nl_halo(noisy[lo:hi], None if basic_full is None
-                                 else basic_full[lo:hi], fflow[lo:hi],
-                                 bflow[lo:hi], scfg, mesh, t_origin=lo)
-            out[start:stop] = o[start - lo:stop - lo].cpu().numpy()
-            if verbose:
-                print(f"[vnlb_tpu_torch] pass {scfg.step} streamed frames "
-                      f"{start}:{stop} (ctx {lo}:{hi})")
-        return out
+        def window(scfg, basic_full, lo, hi):
+            return proc_nl_halo(noisy[lo:hi], None if basic_full is None
+                                else basic_full[lo:hi], fflow[lo:hi],
+                                bflow[lo:hi], scfg, mesh, t_origin=lo,
+                                kernels=kernels)
 
-    basic = stream_pass(cfg.stage(0), None)
-    deno = stream_pass(cfg.stage(1), basic)
+        def run(scfg, basic_full):
+            return window_stream(scfg, noisy, basic_full, chunk, window,
+                                 verbose)
+
+    basic = run(cfg.stage(0), None)
+    deno = run(cfg.stage(1), basic)
     return deno, basic, time.perf_counter() - t0
 
 

@@ -144,35 +144,56 @@ def fold(acc: torch.Tensor, pt: int, ps: int, shape
     Lane block j holds temporal patch plane j, deposited at the plane-0
     row; the dy offsets are summed first, then the dx offsets, both in
     ascending order, as in the JAX fold."""
-    t_len, c, h, w = shape
+    deno, weights, _ = fold_slab(acc, pt, ps, shape)
+    return deno, weights
+
+
+def fold_slab(acc: torch.Tensor, pt: int, ps: int, shape, carry=None):
+    """``fold`` of the rows of n consecutive frames (``shape`` = (n, C, H,
+    W)), which may be a slab of a longer clip: the streamed pass's
+    retiring frames.
+
+    Plane j of row frame r lands on frame r + j, so planes j >= 1 of the
+    last j row frames spill past the slab.  ``carry`` is the previous
+    slab's spill, [(deno (j, C, H, W), weights (j, H, W)) for j = 1 ..
+    pt-1] (None: the slab starts the clip, nothing spills in, as zeros).
+    Each frame's sums are those of the whole clip's fold, in its order.
+    Returns (deno, weights, carry) with this slab's spill."""
+    n, c, h, w = shape
     hp, wp = h - ps + 1, w - ps + 1
     d = c * ps * ps
-    wv = acc[:, -1].reshape(t_len, hp, wp)
-    wfull = torch.zeros((t_len, h, w), dtype=acc.dtype, device=acc.device)
+    wv = acc[:, -1].reshape(n, hp, wp)
+    wfull = torch.zeros((n, h, w), dtype=acc.dtype, device=acc.device)
     for dy in range(ps):
         for dx in range(ps):
             wfull[:, dy:dy + hp, dx:dx + wp] += wv
     weights = wfull.clone()
-    for j in range(1, pt):
-        weights[j:] += wfull[:t_len - j]
-
-    deno = None
+    deno, spill = None, []
     for j in range(pt):
-        a = acc[:, j * d:(j + 1) * d].reshape(t_len, hp, wp, c, ps, ps)
-        a = a.permute(0, 3, 5, 4, 1, 2)            # (T, C, dx, dy, H', W')
-        accx = torch.zeros((t_len, c, ps, h, wp), dtype=acc.dtype,
+        a = acc[:, j * d:(j + 1) * d].reshape(n, hp, wp, c, ps, ps)
+        a = a.permute(0, 3, 5, 4, 1, 2)            # (n, C, dx, dy, H', W')
+        accx = torch.zeros((n, c, ps, h, wp), dtype=acc.dtype,
                            device=acc.device)
         for dy in range(ps):
             accx[:, :, :, dy:dy + hp, :] += a[:, :, :, dy]
-        dj = torch.zeros((t_len, c, h, w), dtype=acc.dtype,
-                         device=acc.device)
+        dj = torch.zeros((n, c, h, w), dtype=acc.dtype, device=acc.device)
         for dx in range(ps):
             dj[:, :, :, dx:dx + wp] += accx[:, :, dx]
-        if deno is None:
+        if j == 0:
             deno = dj
+            continue
+        if carry is None:
+            cd = torch.zeros((j, c, h, w), dtype=acc.dtype, device=acc.device)
+            cw = torch.zeros((j, h, w), dtype=acc.dtype, device=acc.device)
         else:
-            deno[j:] += dj[:t_len - j]
-    return deno, weights
+            cd, cw = carry[j - 1]
+        # plane j of row frames [start - j, start + n): frame f takes row
+        # f - j, from the carry below the slab
+        ed, ew = torch.cat([cd, dj]), torch.cat([cw, wfull])
+        deno += ed[:n]
+        weights += ew[:n]
+        spill.append((ed[n:], ew[n:]))
+    return deno, weights, spill
 
 
 def finalize_img(deno: torch.Tensor, weights: torch.Tensor,

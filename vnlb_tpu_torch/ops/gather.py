@@ -8,6 +8,8 @@ video at its decoded corner: kernel K4 (ops/patch_gather.py).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -24,12 +26,18 @@ def decode_corners(inds: torch.Tensor, shape, ps: int, pt: int):
     return f, y, x
 
 
-def inds_to_rows(inds: torch.Tensor, shape, ps: int, pt: int) -> torch.Tensor:
+def inds_to_rows(inds: torch.Tensor, shape, ps: int, pt: int, t0: int = 0,
+                 slots: Optional[int] = None) -> torch.Tensor:
     """Flat image indices -> (B, K, pt) rows of the flattened (T, H', W')
-    patch-corner space (frame f+j, same corner)."""
+    patch-corner space (frame f+j, same corner).
+
+    With ``slots`` the rows are those of a streamed pass's live
+    accumulator (streaming.py): frame f of this video is global frame f +
+    ``t0``, whose rows lie at slot (f + t0) mod ``slots``."""
     t_len, c, h, w = shape
     hp, wp = h - ps + 1, w - ps + 1
     f, y, x = decode_corners(inds, shape, ps, pt)
-    base = f * (hp * wp) + y * wp + x
-    dt = torch.arange(pt, device=inds.device) * (hp * wp)
-    return base[:, :, None] + dt[None, None, :]
+    fr = f[:, :, None] + torch.arange(pt, device=inds.device)
+    if slots is not None:
+        fr = (fr + t0) % slots
+    return fr * (hp * wp) + (y * wp + x)[:, :, None]

@@ -33,6 +33,13 @@ clamps, and the coarse levels are the full-frame pooled levels (JAX's
 ``coarse_global``, which every caller with bounds sets): the query and the
 centres shift to global rows before the first halving, and the full-frame
 clamps apply from there.
+
+On a temporal slab of a streamed pass (streaming.py), ``t_bounds`` = (t0,
+T) says that slab frame 0 is global frame t0 of a clip of T frames: the
+offset range, the flow lookups' frame clamp and the +inf of invalid
+offsets follow the clip, as ``y_bounds`` makes the rows follow the frame.
+The slab holds every frame a valid candidate of its sites reads, so each
+site sees the candidates it sees in the whole clip.
 """
 
 from __future__ import annotations
@@ -52,6 +59,12 @@ def eff_dt_range(cfg: StageConfig, t_len: int):
     some site has 0 <= t+dt <= T-pt."""
     return (max(-cfg.nwt_b, -(t_len - cfg.pt)),
             min(cfg.nwt_f, t_len - cfg.pt))
+
+
+def clip_frames(t_len: int, t_bounds=None):
+    """(t0, T): the global index of this video's frame 0 and the clip's
+    frame count, from ``t_bounds`` on a slab, else (0, ``t_len``)."""
+    return (0, t_len) if t_bounds is None else t_bounds
 
 
 def _avg_pool2(video: torch.Tensor) -> torch.Tensor:
@@ -89,19 +102,22 @@ def _round_half_up(x: torch.Tensor) -> torch.Tensor:
 
 def track_centers(sites: torch.Tensor, fflow: torch.Tensor,
                   bflow: torch.Tensor, nwt_b: int, nwt_f: int,
-                  shape, y_bounds=None) -> torch.Tensor:
+                  shape, y_bounds=None, t_bounds=None) -> torch.Tensor:
     """Flow-tracked window centres: int32 (B, nwt_b+nwt_f+1, 2) = (cy, cx)
     for dt = -nwt_b .. +nwt_f.  With zero flow every centre is the site.
     ``y_bounds`` (y0, y1): the frame's first and last rows in this array's
-    coordinates (a halo tile's global bounds), (0, H-1) by default."""
+    coordinates (a halo tile's global bounds), (0, H-1) by default;
+    ``t_bounds``: a slab's (t0, T), the flow frames clamped to the clip."""
     t_len, _, h, w = shape
     y0, y1 = (0, h - 1) if y_bounds is None else y_bounds
+    t0, t_clip = clip_frames(t_len, t_bounds)
     tq = sites[:, 0].long()
     cy0 = sites[:, 1].to(torch.float32)
     cx0 = sites[:, 2].to(torch.float32)
 
     def lookup(flow, f_idx, cy, cx):
-        fi = f_idx.clamp(0, t_len - 1)
+        # the clip's clamp, then the slab's (frames of invalid offsets)
+        fi = ((f_idx + t0).clamp(0, t_clip - 1) - t0).clamp(0, t_len - 1)
         yi = _round_half_up(cy).clamp(max(y0, 0), min(y1, h - 1)).long()
         xi = _round_half_up(cx).clamp(0, w - 1).long()
         return flow[fi, 0, yi, xi], flow[fi, 1, yi, xi]
@@ -142,12 +158,13 @@ def _window_starts(centers: torch.Tensor, w_s: int, ps: int, h: int,
 def exec_search(video: torch.Tensor, sites: torch.Tensor,
                 fflow: torch.Tensor, bflow: torch.Tensor, cfg: StageConfig,
                 levels: Optional[List[torch.Tensor]] = None,
-                dist_fn: Callable = patch_dist, y_bounds=None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                dist_fn: Callable = patch_dist, y_bounds=None,
+                t_bounds=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-K gather search for ``sites`` (S, 3) of ``video`` (T, C, H, W)
     along the flows ``fflow``/``bflow`` (T, 2, H, W).  On a halo tile,
     ``y_bounds`` are the global frame rows in tile coordinates and
-    ``levels[1:]`` are full-frame levels.
+    ``levels[1:]`` are full-frame levels; on a temporal slab ``t_bounds``
+    is its (t0, T).
 
     Returns (vals (S, K) f32 ascending, inds (S, K) int32 flat indices,
     -1 invalid).  ``levels`` reuses a pyramid from ``search_levels``;
@@ -168,12 +185,13 @@ def exec_search(video: torch.Tensor, sites: torch.Tensor,
     dev = video.device
     sites = sites.to(device=dev, dtype=torch.int64)
     s_cnt = sites.shape[0]
-    dt_lo, dt_hi = eff_dt_range(cfg, t_len)
+    t0, t_clip = clip_frames(t_len, t_bounds)
+    dt_lo, dt_hi = eff_dt_range(cfg, t_clip)
     n_dt = dt_hi - dt_lo + 1
     # only the statically valid offsets: a centre depends on the steps
     # before it only, so these equal JAX's centres sliced to [dt_lo, dt_hi]
     centers = track_centers(sites, fflow, bflow, -dt_lo, dt_hi,
-                            video.shape, y_bounds).long()
+                            video.shape, y_bounds, t_bounds).long()
     inv = inv_norm(cfg)
 
     ts, qy, qx = sites[:, 0], sites[:, 1], sites[:, 2]
@@ -196,8 +214,9 @@ def exec_search(video: torch.Tensor, sites: torch.Tensor,
         part = raw * inv                                      # (n_dt, S, ws2)
         cand = part if cand is None else cand + part
 
-    f = ts[None, :] + torch.arange(dt_lo, dt_hi + 1, device=dev)[:, None]
-    valid = (f >= 0) & (f <= t_len - pt)                      # (n_dt, S)
+    f = ts[None, :] + t0 + torch.arange(dt_lo, dt_hi + 1,
+                                        device=dev)[:, None]
+    valid = (f >= 0) & (f <= t_clip - pt)                     # (n_dt, S)
     with span("vnlb.sync.gather_inf"):
         inf = torch.tensor(float("inf"), device=dev)
     cand = torch.where(valid[:, :, None], cand - cfg.offset, inf)

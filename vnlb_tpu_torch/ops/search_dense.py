@@ -40,6 +40,11 @@ same search on a halo strip tile of the H-sharded pass: level 0 on the
 tile in tile coordinates, the coarse needle levels on the full-frame pooled
 levels at the sites' global rows, +inf for candidates outside the GLOBAL
 frame, indices decoded in tile coordinates.
+
+On a temporal slab of a streamed pass, ``exec_search_dense`` takes the
+gather search's ``t_bounds`` (ops/search.py): the offset range and the
++inf of invalid offsets follow the clip, and the distances of K1 or K3
+come from the slab, which holds every frame a valid candidate reads.
 """
 
 from __future__ import annotations
@@ -52,7 +57,8 @@ from ..config import StageConfig
 from ..utils.timer import span
 from .dense_dist import dense_dist, frame_range
 from .patch_dist import patch_dist, patch_dist_tile, tile_oob
-from .search import _apply_tau, eff_dt_range, inv_norm, search_levels
+from .search import (_apply_tau, clip_frames, eff_dt_range, inv_norm,
+                     search_levels)
 
 # sites per sort of the exact top-K (bounds the sort's scratch)
 SORT_CHUNK = 4096
@@ -103,6 +109,12 @@ def _full_planes(levels, queries, cfg, dt_lo, n_dt, dense_fn
     t_len = levels[0].shape[0]
     for dt in range(dt_lo, dt_lo + n_dt):
         f_lo, f_hi = frame_range(t_len, cfg.pt, dt)
+        if f_lo >= f_hi:
+            # a slab with no candidate frame at this dt: every site is
+            # masked +inf
+            yield torch.zeros((queries[0][0].shape[0], cfg.w_s * cfg.w_s),
+                              device=levels[0].device)
+            continue
         cand = None
         for v_l, (qt, qy, qx) in zip(levels, queries):
             plane = dense_fn(v_l, dt, cfg.pt, cfg.ps, cfg.w_s)
@@ -195,14 +207,15 @@ def _decode(vals, sel, sites, cfg: StageConfig, dt_lo: int, shape):
 
 
 def _masker(sites, cfg: StageConfig, t_len: int, dt_lo: int, n_dt: int,
-            oob: Optional[torch.Tensor]):
+            oob: Optional[torch.Tensor], t0: int = 0):
     """(mask, valid): ``mask(cand, ok)`` subtracts the offset and adds +inf
     where ``ok`` (the leading dims of ``cand``) is False and where ``oob``
     (S, ws2) is True -- additions, so x + 0 stays x; ``valid`` (n_dt, S)
-    says which (dt, site) have a candidate frame."""
+    says which (dt, site) have a candidate frame in the clip of ``t_len``
+    frames whose frame ``t0`` is the sites' frame 0."""
     dev = sites.device
-    f = sites[None, :, 0] + torch.arange(dt_lo, dt_lo + n_dt,
-                                          device=dev)[:, None]
+    f = sites[None, :, 0] + t0 + torch.arange(dt_lo, dt_lo + n_dt,
+                                               device=dev)[:, None]
     valid = (f >= 0) & (f <= t_len - cfg.pt)
     with span("vnlb.sync.dense_inf"):
         inf = torch.tensor(float("inf"), device=dev)
@@ -229,7 +242,7 @@ def exec_search_dense(video: torch.Tensor, sites: torch.Tensor,
                       cfg: StageConfig,
                       levels: Optional[List[torch.Tensor]] = None,
                       dist_fn: Callable = patch_dist,
-                      dense_fn: Callable = dense_dist
+                      dense_fn: Callable = dense_dist, t_bounds=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-K search for lattice ``sites`` (S, 3) of ``video`` (T, C, H, W).
 
@@ -238,14 +251,16 @@ def exec_search_dense(video: torch.Tensor, sites: torch.Tensor,
     ``dist_fn`` (K1, ``dense_rows="auto"``) and ``dense_fn`` (K3,
     ``dense_rows="full"``) are the distance functions (the
     device-dispatching wrappers by default; the tests and the on-card
-    comparison pass the plain ones).
+    comparison pass the plain ones).  ``t_bounds``: a temporal slab's (t0,
+    T), as in ``search.exec_search``.
     """
     t_len, _, h, w = video.shape
     ps, w_s = cfg.ps, cfg.w_s
     half = (w_s - 1) // 2
     ws2 = w_s * w_s
     s_cnt = sites.shape[0]
-    dt_lo, n_dt = _dt_span(cfg, t_len)
+    t0, t_clip = clip_frames(t_len, t_bounds)
+    dt_lo, n_dt = _dt_span(cfg, t_clip)
     if levels is None:
         levels = search_levels(video, cfg)
     sites = sites.to(device=video.device, dtype=torch.int64)
@@ -256,7 +271,7 @@ def exec_search_dense(video: torch.Tensor, sites: torch.Tensor,
         cx = sites[:, 2, None, None] - half + dgrid[None, None, :]
         oob = ((cy < 0) | (cy > h - ps) | (cx < 0)
                | (cx > w - ps)).reshape(s_cnt, ws2)
-    mask, valid = _masker(sites, cfg, t_len, dt_lo, n_dt, oob)
+    mask, valid = _masker(sites, cfg, t_clip, dt_lo, n_dt, oob, t0)
 
     queries = [level_queries(sites, lvl, v.shape[2], v.shape[3], cfg)
                for lvl, v in enumerate(levels)]

@@ -1,8 +1,10 @@
 """The two passes pipelined over temporal chunks (vnlb_tpu/parallel/pipe.py).
 
-Both paths use ``denoise_streaming``'s windows (``streaming.windows``,
+Both paths use the windowed composition's windows (``streaming.windows``,
 ``pass_ctx``), and pass 2 reads the same finalized basic frames, so the
-output equals ``denoise_streaming`` on the same chunking bit for bit.  A
+output equals that composition (``streaming.window_stream`` of
+``window_pass``, as ``denoise_streaming(mesh=...)`` runs it) on the same
+chunking bit for bit.  A
 pass-2 window starts once every basic frame it reads is final
 (``schedule``): in steady state L = ceil(ctx2 / chunk) pass-1 chunks
 later, the smallest such lag.
@@ -93,9 +95,10 @@ def denoise_pipelined(noisy, sigma: float, chunk: int = 12, flows=None,
     every rank of the world; each pass runs halo-sharded over its stage's
     group.  Overrides ``devices``.
 
-    Returns (deno, basic, seconds) as host numpy arrays, equal to
-    ``denoise_streaming(noisy, sigma, chunk=chunk, ...)`` (with ``meshes``:
-    over a mesh of the stages' size), the same on every rank.
+    Returns (deno, basic, seconds) as host numpy arrays, equal to the
+    windowed composition of ``streaming.window_stream`` on the same
+    chunking (with ``meshes``: ``denoise_streaming(..., mesh=...)`` over a
+    mesh of the stages' size), the same on every rank.
     """
     if meshes is not None:
         return _over_meshes(noisy, sigma, chunk, flows, preset, cfg, meshes,

@@ -17,7 +17,10 @@ its update rows).
 After the last chunk: fold, normalization with the fallback image, YUV ->
 RGB.  Chunks bound the memory; they are processed in the planned site
 order, so the scatter adds rows in the same order as JAX's one scatter over
-all site batches.  The pass is deterministic.
+all site batches.  The pass is deterministic.  The rolling stream of
+``denoise_streaming`` (streaming.py) calls ``accumulate`` on a temporal
+slab of the clip with its live accumulator (``Live``), and folds and
+finishes the complete frames itself.
 """
 
 from __future__ import annotations
@@ -82,18 +85,19 @@ def check_supported(cfg: StageConfig) -> None:
 
 
 def agg_weights(vals: torch.Tensor, inds: torch.Tensor, shape,
-                cfg: StageConfig, ka: int) -> torch.Tensor:
+                cfg: StageConfig, ka: int, t0: int = 0) -> torch.Tensor:
     """(B, ka) aggregation weights of the best ``ka`` candidates
     (vnlb_tpu/pipeline.py:227-249): valid candidates (``inds >= 0``);
-    with ``only_frame >= 0`` only those whose decoded corner frame is that
-    frame; with ``agg_weight="exp"`` each weighted by
+    with ``only_frame >= 0`` only those whose decoded corner frame (plus
+    ``t0``, a slab's first global frame) is that frame; with
+    ``agg_weight="exp"`` each weighted by
     exp(-max(val, 0) * 255^2 / (agg_h * sigma^2))."""
     t_len, c, h, w = shape
     valid = inds >= 0
     if cfg.only_frame >= 0:
         f = torch.clamp(torch.clamp(inds.long(), min=0) // (c * h * w),
                         0, t_len - cfg.pt)
-        valid = valid & (f == cfg.only_frame)
+        valid = valid & (f + t0 == cfg.only_frame)
     wts = valid[:, :ka].to(torch.float32)
     if cfg.agg_weight == "exp":
         wts = wts * torch.exp(-torch.clamp(vals[:, :ka], min=0.0)
@@ -134,11 +138,22 @@ class Tile(NamedTuple):
     coarse: Sequence[torch.Tensor]
 
 
+class Live(NamedTuple):
+    """Where a temporal slab of a streamed pass (streaming.py) lies in its
+    clip: slab frame 0 is global frame ``t0`` of a clip of ``t_clip``
+    frames.  ``acc`` is the pass's live accumulator, (slots * H' * W', pt
+    * D + 1): the rows of global frame g at slot g mod slots."""
+
+    t0: int
+    t_clip: int
+    acc: torch.Tensor
+
+
 def accumulate(noisy_yuv: torch.Tensor, basic_yuv: torch.Tensor,
                srch_yuv: torch.Tensor, fflow: torch.Tensor,
                bflow: torch.Tensor, sites: torch.Tensor, n_dense: int,
                cfg: StageConfig, kernels: Kernels = KERNELS,
-               tile: Optional[Tile] = None):
+               tile: Optional[Tile] = None, live: Optional[Live] = None):
     """All sites -> image-space (deno (T, C, H, W), weights (T, H, W))
     accumulators over the shape of ``noisy_yuv``, un-normalized.  Chunks
     never mix the dense and the gather sites.
@@ -147,12 +162,17 @@ def accumulate(noisy_yuv: torch.Tensor, basic_yuv: torch.Tensor,
     ``exec_search_dense_tile`` (the global frame's out-of-bounds mask), the
     gather sites the global row bounds, and both the full-frame coarse
     levels.  A search whose planes every site shares (``dense_rows="full"``,
-    and any all-rows tile search) runs once over all dense sites first."""
+    and any all-rows tile search) runs once over all dense sites first.
+
+    With ``live`` the inputs are a temporal slab: both searches take the
+    clip's temporal bounds, the rows go into ``live.acc``, and nothing is
+    folded or returned (the stream retires complete frames itself)."""
     shape = tuple(noisy_yuv.shape)
     t_len, c, h, w = shape
     hp, wp = h - cfg.ps + 1, w - cfg.ps + 1
     d = c * cfg.ps * cfg.ps
     dev = noisy_yuv.device
+    t_bounds = None if live is None else (live.t0, live.t_clip)
     if tile is None:
         levels = search_levels(srch_yuv, cfg)
         whole_dense = cfg.dense_rows == "full"
@@ -162,7 +182,8 @@ def accumulate(noisy_yuv: torch.Tensor, basic_yuv: torch.Tensor,
             return exec_search_dense(srch_yuv, sites[s0:s1], cfg,
                                      levels=levels,
                                      dist_fn=kernels.patch_dist,
-                                     dense_fn=kernels.dense_dist)
+                                     dense_fn=kernels.dense_dist,
+                                     t_bounds=t_bounds)
     else:
         levels = [srch_yuv[:, :cfg.dist_chnls].contiguous(), *tile.coarse]
         whole_dense = tile_search_mode(cfg) == "full"
@@ -179,8 +200,12 @@ def accumulate(noisy_yuv: torch.Tensor, basic_yuv: torch.Tensor,
         # before the accumulator exists: the search's planes and candidate
         # buffer are the pass's largest temporaries
         dense_vals, dense = dense_search(0, n_dense)
-    acc = torch.zeros((t_len * hp * wp, cfg.pt * d + 1), dtype=torch.float32,
-                      device=dev)
+    if live is None:
+        acc, t0, slots = torch.zeros((t_len * hp * wp, cfg.pt * d + 1),
+                                     dtype=torch.float32, device=dev), 0, None
+    else:
+        acc, t0 = live.acc, live.t0
+        slots = acc.shape[0] // (hp * wp)
     ka = (cfg.agg_k if cfg.agg_k and cfg.agg_k < cfg.npatches
           else cfg.npatches)
     s_cnt = sites.shape[0]
@@ -199,7 +224,7 @@ def accumulate(noisy_yuv: torch.Tensor, basic_yuv: torch.Tensor,
             vals, inds = exec_search(srch_yuv, chunk, fflow, bflow, cfg,
                                      levels=levels,
                                      dist_fn=kernels.patch_dist,
-                                     y_bounds=y_bounds)
+                                     y_bounds=y_bounds, t_bounds=t_bounds)
         if cfg.deno == "ave":
             (pnoisy,) = kernels.patch_gather([noisy_yuv], inds, cfg.ps,
                                              cfg.pt, cfg.cols_bf16)
@@ -222,11 +247,13 @@ def accumulate(noisy_yuv: torch.Tensor, basic_yuv: torch.Tensor,
                                      poly_fn=kernels.poly_filter)
         # thin the scatter to the best agg_k candidates (vals ascend); the
         # Bayes prior above used all K
-        rows = gather.inds_to_rows(inds[:, :ka], shape, cfg.ps, cfg.pt)
-        wts = agg_weights(vals, inds, shape, cfg, ka)
+        rows = gather.inds_to_rows(inds[:, :ka], shape, cfg.ps, cfg.pt, t0,
+                                   slots)
+        wts = agg_weights(vals, inds, shape, cfg, ka, t0)
         agg.agg_rows(acc, pfilt, rows[:, :, 0], wts, kernels.scatter_rows,
                      bf16=cfg.agg_bf16)
-    return agg.fold(acc, cfg.pt, cfg.ps, shape)
+    if live is None:
+        return agg.fold(acc, cfg.pt, cfg.ps, shape)
 
 
 def as_video(x, device) -> torch.Tensor:

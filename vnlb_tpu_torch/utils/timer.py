@@ -29,6 +29,10 @@ SPANS = (
     "vnlb.filter.prep",         # bayes.bayes_denoise: centring, flat switch
     "vnlb.filter.finish",       # bayes.bayes_denoise: trace, + mean, layout
     "vnlb.search.topk",         # both searches: sort, merge, threshold
+    "vnlb.stream.step",         # streaming.stream_pass: a step's slab and
+                                # sites, planned and uploaded
+    "vnlb.stream.retire",       # streaming.stream_pass: fold, normalise,
+                                # yuv -> rgb, copy out, recycle
     "vnlb.sync.inputs",         # api.denoise / denoise_mod: clip, flows
     "vnlb.sync.sites",          # pipeline.proc_nl: the sites' upload
     "vnlb.sync.color_matrix",   # color._mix: the 3 x 3 matrix's upload
@@ -36,6 +40,9 @@ SPANS = (
     "vnlb.sync.gather_inf",     # search.exec_search: the inf scalar
     "vnlb.sync.scatter_counts",  # agg.scatter_add_rows: bincount, tolist
     "vnlb.sync.filter_consts",  # econ_filter._consts: K2's tables
+    "vnlb.sync.stream_in",      # streaming.stream_pass: frames, flows and
+                                # sites entering the slab
+    "vnlb.sync.stream_out",     # streaming.stream_pass: retired frames out
     "vnlb.sync.call_end",       # api.denoise / denoise_mod: the last wait
 )
 
